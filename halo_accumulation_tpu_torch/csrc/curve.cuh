@@ -1,0 +1,77 @@
+// Complete projective Pallas-curve formulas on register limbs (a = 0, b = 5).
+//
+// Line-for-line the list-form formulas of halo_accumulation_tpu/ops/limbs.py
+// (padd_list: RCB16 algorithm 7 with b3 = 15; pdbl_list: algorithm 9), which
+// the torch twins in ops/cuda_kernels.py compute with the same field
+// operations on the same operands, so kernel and twin agree limb for limb.
+// Complete formulas have no branches: P == Q, P == -Q and the identity
+// (0 : 1 : 0) take the same path.
+#pragma once
+#include "field.cuh"
+
+namespace halo {
+
+struct Pt {
+  Fe x, y, z;
+};
+
+__device__ __forceinline__ Pt identity() {
+  Pt P;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    P.x.v[i] = 0;
+    P.y.v[i] = i == 0 ? 1u : 0u;
+    P.z.v[i] = 0;
+  }
+  return P;
+}
+
+__device__ __forceinline__ Pt padd(const Pt& P, const Pt& Q) {
+  const Fe t0 = mul(P.x, Q.x);
+  const Fe t1 = mul(P.y, Q.y);
+  const Fe t2 = mul(P.z, Q.z);
+  const Fe t3 = sub(mul(add(P.x, P.y), add(Q.x, Q.y)), add(t0, t1));
+  const Fe t4 = sub(mul(add(P.y, P.z), add(Q.y, Q.z)), add(t1, t2));
+  const Fe w = sub(mul(add(P.x, P.z), add(Q.x, Q.z)), add(t0, t2));
+  const Fe t2b = mul_small(t2, 15u);
+  const Fe wb = mul_small(w, 15u);
+  const Fe t0b = add(add(t0, t0), t0);
+  const Fe z3s = add(t1, t2b);
+  const Fe t1b = sub(t1, t2b);
+  Pt R;
+  R.x = sub(mul(t3, t1b), mul(t4, wb));
+  R.y = add(mul(t1b, z3s), mul(wb, t0b));
+  R.z = add(mul(z3s, t4), mul(t0b, t3));
+  return R;
+}
+
+__device__ __forceinline__ Pt pdbl(const Pt& P) {
+  const Fe t0 = mul(P.y, P.y);
+  const Fe t1 = mul(P.y, P.z);
+  const Fe t2 = mul_small(mul(P.z, P.z), 15u);
+  const Fe z38 = mul_small(t0, 8u);
+  const Fe y3s = add(t0, t2);
+  const Fe t0a = sub(t0, mul_small(t2, 3u));
+  const Fe x3a = mul(t2, z38);
+  const Fe xy = mul(P.x, P.y);
+  Pt R;
+  R.z = mul(t1, z38);
+  R.y = add(x3a, mul(t0a, y3s));
+  const Fe x3b = mul(t0a, xy);
+  R.x = add(x3b, x3b);
+  return R;
+}
+
+__device__ __forceinline__ Pt load_pt(const int64_t* x, const int64_t* y, const int64_t* z,
+                                      int64_t stride, int64_t col) {
+  return Pt{load_fe(x, stride, col), load_fe(y, stride, col), load_fe(z, stride, col)};
+}
+
+__device__ __forceinline__ void store_pt(int64_t* x, int64_t* y, int64_t* z, int64_t stride,
+                                         int64_t col, const Pt& P) {
+  store_fe(x, stride, col, P.x);
+  store_fe(y, stride, col, P.y);
+  store_fe(z, stride, col, P.z);
+}
+
+}  // namespace halo

@@ -1,0 +1,267 @@
+"""The port's Hopper kernels: wrappers, launch counts and plain twins.
+
+Four CUDA kernels (sources in `halo_accumulation_tpu_torch/csrc/`) replace
+the Pallas kernels of `halo_accumulation_tpu/ops/pallas_kernels.py` that
+the verifier path runs:
+
+  fmul           <- _fmul_kernel           Fq multiply (the others' inner loop)
+  padd           <- _padd_kernel           complete projective add
+  pdbl           <- _pdbl_kernel           complete projective double
+  bucket_masked  <- _bucket_kernel_masked  masked bucket reduction of the MSM
+
+Each has a plain PyTorch twin here that computes the same limbs in the same
+operation order (the CUDA device functions mirror ops/limbs.py's list form;
+the twins run the same math stacked over a batch axis), so the kernel and
+its twin agree exactly.  A wrapper takes the twin for tensors on the CPU and
+launches the kernel for CUDA tensors; any other device raises.  Each launch
+adds one to its kernel's `launches` count, and only a launch does: a call of
+width 0 has nothing to compute and launches nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections.abc import Callable
+from dataclasses import dataclass
+
+import torch
+
+from halo_accumulation_tpu_torch import runtime
+from halo_accumulation_tpu_torch.ops.field import FQ, I64, L, W
+
+B3 = 15  # 3 * b for y^2 = x^3 + 5
+_VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+
+
+@dataclass
+class Kernel:
+    """One CUDA kernel: `csrc/<name>.cu` exports `halo_<name>(*argtypes)`,
+    which returns cudaGetLastError()."""
+
+    name: str
+    replaces: str
+    argtypes: list
+    launches: int = 0
+    fn: Callable | None = None
+
+    @property
+    def source(self) -> str:
+        return f"halo_accumulation_tpu_torch/csrc/{self.name}.cu"
+
+
+KERNELS = {
+    k.name: k
+    for k in (
+        Kernel("fmul", "halo_accumulation_tpu/ops/pallas_kernels.py:65", [_VP] * 3 + [_I64, _VP]),
+        Kernel("padd", "halo_accumulation_tpu/ops/pallas_kernels.py:69", [_VP] * 9 + [_I64, _VP]),
+        Kernel("pdbl", "halo_accumulation_tpu/ops/pallas_kernels.py:346", [_VP] * 6 + [_I64, _VP]),
+        Kernel("bucket_masked", "halo_accumulation_tpu/ops/pallas_kernels.py:262",
+               [_VP] * 5 + [_I32, _I64, _I64, _VP]),
+    )
+}
+
+
+def load(verbose: bool = False) -> None:
+    """Build every kernel that is not built yet and bind its C entry point."""
+    paths = runtime.build_kernels(list(KERNELS), verbose=verbose)
+    for name, path in paths.items():
+        k = KERNELS[name]
+        if k.fn is None:
+            fn = getattr(ctypes.CDLL(str(path)), f"halo_{name}")
+            fn.argtypes = k.argtypes
+            fn.restype = ctypes.c_int
+            k.fn = fn
+
+
+def reset_launches() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+# -- plain twins ----------------------------------------------------------------
+
+
+def _stk(*xs):
+    return torch.stack(xs, dim=1)  # (L, k, *batch)
+
+
+def fmul_plain(a, b):
+    return FQ.mul(a, b)
+
+
+def padd_plain(P, Q):
+    """RCB16 algorithm 7 (a = 0, b3 = 15) on (x, y, z) limb tensors, the
+    multiplies grouped into two stacked calls."""
+    f = FQ
+    x1, y1, z1 = P
+    x2, y2, z2 = Q
+    s1, s2, s3 = f.add(_stk(x1, y1, x1), _stk(y1, z1, z1)).unbind(1)
+    s4, s5, s6 = f.add(_stk(x2, y2, x2), _stk(y2, z2, z2)).unbind(1)
+    t0, t1, t2, m3, m4, m5 = f.mul(_stk(x1, y1, z1, s1, s2, s3), _stk(x2, y2, z2, s4, s5, s6)).unbind(1)
+    sums = f.add(_stk(t0, t1, t0), _stk(t1, t2, t2))
+    t3, t4, w = f.sub(_stk(m3, m4, m5), sums).unbind(1)
+    t2b, wb = f.mul_small(_stk(t2, w), B3).unbind(1)
+    t0b = f.add(f.add(t0, t0), t0)
+    z3s = f.add(t1, t2b)
+    t1b = f.sub(t1, t2b)
+    x3a, t2c, y3a, t1c, t0c, z3c = f.mul(
+        _stk(t4, t3, wb, t1b, t0b, z3s), _stk(wb, t1b, t0b, z3s, t3, t4)
+    ).unbind(1)
+    r1, r2 = f.add(_stk(t1c, z3c), _stk(y3a, t0c)).unbind(1)
+    return f.sub(t2c, x3a), r1, r2
+
+
+def pdbl_plain(P):
+    """RCB16 algorithm 9 (a = 0), multiplies grouped into three calls."""
+    f = FQ
+    x, y, z = P
+    t0, t1, zz = f.mul(_stk(y, y, z), _stk(y, z, z)).unbind(1)
+    t2 = f.mul_small(zz, B3)
+    z38 = f.mul_small(t0, 8)
+    y3s = f.add(t0, t2)
+    t0a = f.sub(t0, f.mul_small(t2, 3))
+    x3a, z3, xy = f.mul(_stk(t2, t1, x), _stk(z38, z38, y)).unbind(1)
+    y3b, x3b = f.mul(_stk(t0a, t0a), _stk(y3s, xy)).unbind(1)
+    return f.add(x3b, x3b), f.add(x3a, y3b), z3
+
+
+def unpack_affine_planes(packed):
+    """(L, ...) pair-packed planes -> (x, y) canonical limb tensors."""
+    shifts = torch.tensor([0, W], dtype=I64, device=packed.device)
+    shp = (1, 2) + (1,) * (packed.dim() - 1)
+    flat = ((packed[:, None] >> shifts.reshape(shp)) & 0x7FFF).reshape((2 * L,) + tuple(packed.shape[1:]))
+    return flat[:L], flat[L:]
+
+
+
+def _identity_cols(n: int, device):
+    x = torch.zeros((L, n), dtype=I64, device=device)
+    y = x.clone()
+    y[0] = 1
+    return x, y, x.clone()
+
+
+def bucket_masked_plain(M, meta):
+    """Per column, the complete-add sum of the live slots off <= p < off+len
+    of M (lanes, padp, cols), from the identity, in increasing p.  lanes 18:
+    pair-packed affine x || y with Z = 1; lanes 54: projective x || y || z.
+    Dead slots are skipped, as the kernel skips them."""
+    lanes, padp, cols = M.shape
+    off = meta[0] & 7
+    end = torch.clamp(off + (meta[0] >> 3), max=padp)
+    ax, ay, az = _identity_cols(cols, M.device)
+    if cols == 0:
+        return ax, ay, az
+    lo, hi = int(off.min()), int(end.max())
+    for p in range(lo, hi):
+        idx = ((off <= p) & (end > p)).nonzero().squeeze(1)
+        if idx.numel() == 0:
+            continue
+        sl = M[:, p, idx]
+        if lanes == L:
+            sx, sy = unpack_affine_planes(sl)
+            sz = torch.zeros_like(sx)
+            sz[0] = 1
+        else:
+            sx, sy, sz = sl[:L], sl[L : 2 * L], sl[2 * L :]
+        nx, ny, nz = padd_plain((ax[:, idx], ay[:, idx], az[:, idx]), (sx, sy, sz))
+        ax[:, idx], ay[:, idx], az[:, idx] = nx, ny, nz
+    return ax, ay, az
+
+
+# -- wrappers -------------------------------------------------------------------
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _check_planes(*ts, rows: int = L):
+    n = ts[0].shape[1] if ts[0].dim() == 2 else -1
+    for t in ts:
+        if t.device.type != "cuda":
+            raise ValueError(f"kernel input on {t.device}, expected a CUDA tensor")
+        if t.dtype != I64:
+            raise TypeError(f"kernel input dtype {t.dtype}, expected int64 limbs")
+        if t.dim() != 2 or t.shape[0] != rows or t.shape[1] != n:
+            raise ValueError(f"kernel input shape {tuple(t.shape)}, expected ({rows}, {n})")
+    return n
+
+
+def _launch(name: str, *args) -> None:
+    k = KERNELS[name]
+    if k.fn is None:
+        load()
+    rc = k.fn(*args, _stream())
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+    k.launches += 1
+
+
+def _on_cpu(*ts) -> bool:
+    devs = {t.device.type for t in ts}
+    if devs == {"cpu"}:
+        return True
+    if devs == {"cuda"}:
+        return False
+    raise ValueError(f"kernel inputs on {sorted(devs)}: expected all CPU or all CUDA")
+
+
+def fmul(a, b):
+    """Fq multiply of (18, n) limb tensors."""
+    if _on_cpu(a, b):
+        return fmul_plain(a, b)
+    a, b = a.contiguous(), b.contiguous()
+    n = _check_planes(a, b)
+    out = torch.empty_like(a)
+    if n:
+        _launch("fmul", a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+def padd(P, Q):
+    """Complete add of two (x, y, z) tuples of (18, n) limb tensors."""
+    if _on_cpu(*P, *Q):
+        return padd_plain(P, Q)
+    ins = [t.contiguous() for t in (*P, *Q)]
+    n = _check_planes(*ins)
+    outs = [torch.empty_like(ins[0]) for _ in range(3)]
+    if n:
+        _launch("padd", *(t.data_ptr() for t in ins + outs), n)
+    return tuple(outs)
+
+
+def pdbl(P):
+    """Complete double of an (x, y, z) tuple of (18, n) limb tensors."""
+    if _on_cpu(*P):
+        return pdbl_plain(P)
+    ins = [t.contiguous() for t in P]
+    n = _check_planes(*ins)
+    outs = [torch.empty_like(ins[0]) for _ in range(3)]
+    if n:
+        _launch("pdbl", *(t.data_ptr() for t in ins + outs), n)
+    return tuple(outs)
+
+
+def bucket_masked(M, meta):
+    """Masked bucket reduction: M (18 or 54, padp, cols) int64, meta
+    (1, cols) int64 off | len << 3 -> (x, y, z) each (18, cols)."""
+    if _on_cpu(M, meta):
+        return bucket_masked_plain(M, meta)
+    lanes, padp, cols = M.shape
+    if lanes not in (L, 3 * L):
+        raise ValueError(f"bucket_masked takes 18 or 54 lanes, got {lanes}")
+    if M.dtype != I64 or meta.dtype != I64:
+        raise TypeError("bucket_masked takes int64 planes and meta")
+    if tuple(meta.shape) != (1, cols):
+        raise ValueError(f"meta shape {tuple(meta.shape)}, expected (1, {cols})")
+    M, meta = M.contiguous(), meta.contiguous()
+    outs = [torch.empty((L, cols), dtype=I64, device=M.device) for _ in range(3)]
+    if cols:
+        _launch("bucket_masked", M.data_ptr(), meta.data_ptr(), *(o.data_ptr() for o in outs),
+                lanes, padp, cols)
+    return tuple(outs)

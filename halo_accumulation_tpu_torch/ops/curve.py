@@ -1,0 +1,134 @@
+"""Vectorized Pallas-curve group ops (complete projective formulas), in PyTorch.
+
+Counterpart of `halo_accumulation_tpu/ops/curve.py`.  A point vector is a
+PointVec of (18, *batch) int64 limb tensors in homogeneous projective
+coordinates; the identity is (0 : 1 : 0).  Additions and doublings use the
+complete Renes-Costello-Batina 2016 formulas (a = 0, b = 5), which handle
+P == Q, P == -Q and the identity without branches.
+
+`padd` and `pdbl` flatten the batch and call the kernel wrappers of
+ops/cuda_kernels.py: on a CUDA tensor every add and double is one kernel
+launch, at any width; on the CPU the wrappers run the plain twins.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from halo_accumulation_tpu_torch import fields as F
+from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
+from halo_accumulation_tpu_torch.ops.field import FQ, L, limb_array_to_ints
+
+
+class PointVec(NamedTuple):
+    """Projective point(s): X, Y, Z limb tensors of shape (18, *batch)."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+
+    @property
+    def batch_shape(self):
+        return tuple(self.x.shape[1:])
+
+
+def identity(batch_shape=(), device="cpu") -> PointVec:
+    z = FQ.zeros(batch_shape, device)
+    return PointVec(z, FQ.from_int(1, batch_shape, device).contiguous(), z.clone())
+
+
+def from_affine_ints(points, device="cpu") -> PointVec:
+    """Host list of (x, y) int pairs or None (infinity) -> PointVec."""
+    xs, ys, zs = [], [], []
+    for P in points:
+        if P is None:
+            xs.append(0), ys.append(1), zs.append(0)
+        else:
+            xs.append(P[0]), ys.append(P[1]), zs.append(1)
+    return PointVec(FQ.from_ints(xs, device), FQ.from_ints(ys, device), FQ.from_ints(zs, device))
+
+
+def _flat(P: PointVec, shape):
+    return tuple(c.expand((L,) + shape).reshape(L, -1) for c in P)
+
+
+def padd(P: PointVec, Q: PointVec) -> PointVec:
+    """Complete projective addition, RCB16 algorithm 7 (12M + 2m(b3))."""
+    shape = tuple(torch.broadcast_shapes(P.x.shape, Q.x.shape)[1:])
+    out = ck.padd(_flat(P, shape), _flat(Q, shape))
+    return PointVec(*(o.reshape((L,) + shape) for o in out))
+
+
+def pdbl(P: PointVec) -> PointVec:
+    """Complete projective doubling, RCB16 algorithm 9 (6M + 2S)."""
+    shape = P.batch_shape
+    out = ck.pdbl(_flat(P, shape))
+    return PointVec(*(o.reshape((L,) + shape) for o in out))
+
+
+def fq_mul(a, b):
+    """Fq multiply of limb tensors of any (broadcastable) batch shape through
+    the fmul kernel wrapper: a launch on the card, the plain twin on the CPU."""
+    shape = tuple(torch.broadcast_shapes(a.shape, b.shape)[1:])
+    out = ck.fmul(a.expand((L,) + shape).reshape(L, -1), b.expand((L,) + shape).reshape(L, -1))
+    return out.reshape((L,) + shape)
+
+
+def pneg(P: PointVec) -> PointVec:
+    return PointVec(P.x, FQ.neg(P.y), P.z)
+
+
+def pselect(m, A: PointVec, B: PointVec) -> PointVec:
+    """where(m, A, B) with m broadcastable over the batch shape."""
+    return PointVec(FQ.select(m, A.x, B.x), FQ.select(m, A.y, B.y), FQ.select(m, A.z, B.z))
+
+
+def is_identity(P: PointVec):
+    return FQ.is_zero(P.z)
+
+
+def peq(P: PointVec, Q: PointVec):
+    """Projective equality: x1 z2 == x2 z1 and y1 z2 == y2 z1."""
+    ex = FQ.eq(fq_mul(P.x, Q.z), fq_mul(Q.x, P.z))
+    ey = FQ.eq(fq_mul(P.y, Q.z), fq_mul(Q.y, P.z))
+    return (ex & ey) | (is_identity(P) & is_identity(Q))
+
+
+def to_affine(P: PointVec):
+    """Batch-normalize: (x, y, inf_mask) with x, y canonical limbs."""
+    zinv = FQ.inv(P.z)
+    return FQ.canon(fq_mul(P.x, zinv)), FQ.canon(fq_mul(P.y, zinv)), is_identity(P)
+
+
+def to_host(P: PointVec) -> list:
+    """Points of any batch shape -> flat list of host affine ints / None,
+    with one device-to-host copy."""
+    arr = torch.stack([c.reshape(L, -1) for c in P]).cpu().numpy()  # (3, L, n)
+    xs, ys, zs = (limb_array_to_ints(arr[i]) for i in range(3))
+    out = []
+    for x, y, z in zip(xs, ys, zs):
+        z %= F.Q
+        if z == 0:
+            out.append(None)
+            continue
+        zinv = pow(z, -1, F.Q)
+        out.append((x * zinv % F.Q, y * zinv % F.Q))
+    return out
+
+
+def sum_points(P: PointVec, axis: int = 0) -> PointVec:
+    """Tree-reduce one batch axis with complete adds."""
+    ax = axis + 1
+    while P.x.shape[ax] > 1:
+        n = P.x.shape[ax]
+        half = n // 2
+        s = padd(
+            PointVec(*(c.narrow(ax, 0, half) for c in P)),
+            PointVec(*(c.narrow(ax, half, half) for c in P)),
+        )
+        if n % 2:
+            s = PointVec(*(torch.cat([a, c.narrow(ax, 2 * half, 1)], dim=ax) for a, c in zip(s, P)))
+        P = s
+    return PointVec(*(c.squeeze(ax) for c in P))

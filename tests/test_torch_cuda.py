@@ -1,0 +1,109 @@
+"""The port's CUDA kernels on an NVIDIA GPU: each kernel against its plain
+twin, and the verifier path on a committed chain.
+
+Every test here needs a card and skips without one.  The file imports no
+JAX, so it also runs where only the port is installed:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from halo_accumulation_tpu_torch import acc as acc_mod, chain, fields as F, pp as pp_mod
+from halo_accumulation_tpu_torch.ops import cuda_kernels as ck, curve as cv, msm as msm_mod
+from halo_accumulation_tpu_torch.ops.field import FQ, L
+
+pytestmark = pytest.mark.cuda
+
+CHAIN = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, ".chain_cache", "chain_512_10.bin")
+LANES = 4096
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0xC0FFEE)
+
+
+def _points(rng, n):
+    """n lazy projective lanes per side: random sums, the identity, P == Q
+    and P == -Q, every coordinate scaled by a random nonzero lambda."""
+    base = [F.p_mul(int.from_bytes(rng.bytes(40), "little") % F.R, (F.G_X, F.G_Y)) for _ in range(16)]
+    base.append(None)
+    ip = rng.integers(0, len(base), n)
+    ps = [base[i] for i in ip]
+    qs = [(base[rng.integers(0, len(base))], None, p, F.p_neg(p))[i % 4] for i, p in enumerate(ps)]
+
+    def lazy(pts):
+        lam = FQ.from_ints([int(x) for x in rng.integers(1, 1 << 62, n)])
+        return tuple(FQ.mul(c, lam) for c in cv.from_affine_ints(pts))
+
+    return lazy(ps), lazy(qs)
+
+
+@pytest.mark.parametrize("op", ["fmul", "padd", "pdbl"])
+def test_kernel_matches_twin(cuda, rng, op):
+    P, Q = _points(rng, LANES)
+    Pc, Qc = tuple(c.to(cuda) for c in P), tuple(c.to(cuda) for c in Q)
+    before = ck.launch_counts()[op]
+    if op == "fmul":
+        got, want = (ck.fmul(Pc[0], Qc[0]),), (ck.fmul_plain(P[0], Q[0]),)
+    elif op == "padd":
+        got, want = ck.padd(Pc, Qc), ck.padd_plain(P, Q)
+    else:
+        got, want = ck.pdbl(Pc), ck.pdbl_plain(P)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()[op] == before + 1
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("lanes", [18, 54], ids=["affine18", "proj54"])
+def test_bucket_masked_matches_twin(cuda, rng, lanes):
+    P, _ = _points(rng, 64)
+    if lanes == L:
+        x, y, _ = cv.to_affine(cv.PointVec(*P))
+        planes = msm_mod.planes_from_affine(x, y)
+    else:
+        planes = torch.cat(P)
+    padp, cols = 40, 512
+    M = planes[:, torch.from_numpy(rng.integers(0, 64, (padp, cols)))]
+    off, ln = rng.integers(0, 8, cols), rng.integers(0, padp - 7, cols)
+    ln[:16] = 0
+    meta = torch.from_numpy((off | (ln << 3)).reshape(1, cols))
+    got = ck.bucket_masked(M.to(cuda), meta.to(cuda))
+    torch.cuda.synchronize()
+    want = ck.bucket_masked_plain(M, meta)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+def test_chain_verifier_on_card(cuda):
+    d, qss, accs = chain.load_chain(CHAIN)
+    pp = pp_mod.get_pp(d + 1, cuda)
+    for run in (lambda: chain.verify_chain_fast(d, qss, accs, pp), lambda: chain.verify_chain_slow(accs, pp)):
+        ck.reset_launches()
+        run()
+        assert all(n > 0 for n in ck.launch_counts().values()), ck.launch_counts()
+    bad = acc_mod.Accumulator(accs[0].C_bar, accs[0].d, accs[0].z, (accs[0].v + 1) % F.R, accs[0].pi, accs[0].pi_V)
+    with pytest.raises(ValueError, match=r"^h\(z\) != v at step 0$"):
+        chain.verify_chain_fast(d, qss[:1], [bad], pp)
+    with pytest.raises(ValueError, match=r"^C_\(log_n\) != CM\.Commit_Sigma\(c \|\| v'\) \(batch index 0\)$"):
+        chain.verify_chain_slow([bad, accs[1]], pp)
+
+
+def test_zero_width_launches_nothing(cuda):
+    e = torch.empty((L, 0), dtype=torch.int64, device=cuda)
+    before = ck.launch_counts()
+    assert ck.fmul(e, e).shape == (L, 0)
+    assert all(t.shape == (L, 0) for t in ck.padd((e, e, e), (e, e, e)) + ck.pdbl((e, e, e)))
+    ck.bucket_masked(torch.empty((L, 8, 0), dtype=torch.int64, device=cuda), torch.empty((1, 0), dtype=torch.int64, device=cuda))
+    assert ck.launch_counts() == before

@@ -1,0 +1,190 @@
+"""Port parity of the plain twins of the four Hopper kernels.
+
+On the CPU each wrapper runs its plain PyTorch twin.  The twins are held to
+the JAX package: fmul/padd/pdbl to the list-form limb math that is the body
+of the Pallas kernels (ops/limbs.py, run here on numpy) and to the stacked
+JAX curve ops, limb for limb; the masked bucket reduction to per-column sums
+on the int oracle, with dead and foreign slots.  The kernels themselves are
+held to these twins on a card by tests/test_torch_cuda.py."""
+
+import numpy as np
+import pytest
+import torch
+
+from halo_accumulation_tpu import fields as F
+from halo_accumulation_tpu.ops import curve as jcv, limbs
+from halo_accumulation_tpu.ops.field import FQ as JFQ
+from halo_accumulation_tpu.runtime import cached_jit
+from halo_accumulation_tpu_torch.ops import cuda_kernels as ck, curve as cv, msm as msm_mod
+from halo_accumulation_tpu_torch.ops.field import FQ, L, ints_to_limb_array
+
+
+LF = limbs.ListField(JFQ)
+
+
+def rand_point(rng):
+    return F.p_mul(int.from_bytes(rng.bytes(40), "little") % F.R, (F.G_X, F.G_Y))
+
+
+def point_pairs(rng, n):
+    """Host pairs (P, Q) over n lanes: random sums, the identity on either
+    side, P == Q and P == -Q."""
+    base = [rand_point(rng) for _ in range(8)] + [None]
+    ps, qs = [], []
+    for i in range(n):
+        p = base[rng.integers(0, len(base))]
+        kind = i % 5
+        q = (base[rng.integers(0, len(base))], None, p, F.p_neg(p), rand_point(rng))[kind]
+        ps.append(p)
+        qs.append(q)
+    return ps, qs
+
+
+def lazy(P, rng):
+    """The same projective points with every coordinate times a random
+    nonzero lambda: lazy, non-canonical limbs."""
+    n = P.x.shape[1]
+    lam = FQ.from_ints([int.from_bytes(rng.bytes(40), "little") % (F.Q - 1) + 1 for _ in range(n)])
+    return cv.PointVec(*(FQ.mul(c, lam) for c in P))
+
+
+def as_list(t):
+    a = t.numpy().astype(np.uint32)
+    return [a[i] for i in range(L)]
+
+
+def as_np(limb_list):
+    return np.stack(limb_list).astype(np.int64)
+
+
+@pytest.fixture
+def lanes(rng):
+    ps, qs = point_pairs(rng, 32)
+    P = lazy(cv.from_affine_ints(ps), rng)
+    Q = lazy(cv.from_affine_ints(qs), rng)
+    return ps, qs, P, Q
+
+
+def test_fmul_twin_matches_list_form(rng):
+    lim = rng.integers(0, 1 << 15, size=(2, L, 96), dtype=np.int64)
+    lim[:, 17] &= 3  # raw values below 2^257, the lazy bound
+    a, b = torch.from_numpy(lim[0]), torch.from_numpy(lim[1])
+    got = ck.fmul(a, b)
+    assert np.array_equal(got.numpy(), as_np(LF.mul(as_list(a), as_list(b))))
+    assert FQ.to_ints(got) == [x * y % F.Q for x, y in zip(FQ.to_ints(a), FQ.to_ints(b))]
+
+
+@pytest.mark.parametrize("op", ["padd", "pdbl"])
+def test_point_twin_matches_list_form(lanes, op):
+    ps, qs, P, Q = lanes
+    if op == "padd":
+        got = ck.padd(tuple(P), tuple(Q))
+        want = limbs.padd_list(LF, tuple(map(as_list, P)), tuple(map(as_list, Q)))
+        oracle = [F.p_add(p, q) for p, q in zip(ps, qs)]
+    else:
+        got = ck.pdbl(tuple(P))
+        want = limbs.pdbl_list(LF, tuple(map(as_list, P)))
+        oracle = [F.p_add(p, p) for p in ps]
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), as_np(w))
+    assert cv.to_host(cv.PointVec(*got)) == oracle
+
+
+@pytest.mark.parametrize("op", ["padd", "pdbl"])
+def test_point_ops_match_jax_curve(lanes, op):
+    """curve.padd / curve.pdbl of both packages on the same lazy inputs:
+    the same limbs (the JAX stacked formulas group the multiplies exactly
+    as the twins do)."""
+    _, _, P, Q = lanes
+    jP = jcv.PointVec(*(np.asarray(c, np.uint32) for c in P))
+    jQ = jcv.PointVec(*(np.asarray(c, np.uint32) for c in Q))
+    if op == "padd":
+        got = cv.padd(P, Q)
+        want = cached_jit(jcv.padd, "torch_parity")(jP, jQ)
+    else:
+        got = cv.pdbl(P)
+        want = cached_jit(jcv.pdbl, "torch_parity")(jP)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w).astype(np.int64))
+
+
+def _bucket_case(rng, lanes):
+    """Sorted-payload matrix M (lanes, padp, cols) and meta for 40 columns:
+    each slot holds a point; the slots outside [off, off + len) are foreign
+    and must be ignored; some columns are dead (len 0)."""
+    pts = [rand_point(rng) for _ in range(12)]
+    padp, cols = 24, 40
+    src = rng.integers(0, len(pts), (padp, cols))
+    P = cv.from_affine_ints(pts)
+    if lanes == L:
+        planes = msm_mod.planes_from_affine(P.x, P.y)
+    else:
+        planes = torch.cat(list(lazy(P, rng)))
+    M = planes[:, torch.from_numpy(src)]
+    off = rng.integers(0, 8, cols)
+    ln = rng.integers(0, padp - 7, cols)
+    ln[:4] = 0
+    meta = torch.from_numpy((off | (ln << 3)).reshape(1, cols))
+    want = []
+    for c in range(cols):
+        acc = None
+        for p in range(off[c], off[c] + ln[c]):
+            acc = F.p_add(acc, pts[src[p, c]])
+        want.append(acc)
+    return M, meta, want
+
+
+@pytest.mark.parametrize("lanes", [18, 54], ids=["affine18", "proj54"])
+def test_bucket_masked_twin_vs_oracle(rng, lanes):
+    M, meta, want = _bucket_case(rng, lanes)
+    got = ck.bucket_masked(M, meta)
+    assert all(g.shape == (L, M.shape[2]) for g in got)
+    assert cv.to_host(cv.PointVec(*got)) == want
+    # dead columns hold exactly the identity (0 : 1 : 0)
+    dead = (meta[0] >> 3) == 0
+    assert cv.is_identity(cv.PointVec(*got))[dead].all()
+
+
+def test_affine_planes_roundtrip(rng):
+    vs = [rand_point(rng) for _ in range(16)]
+    xs = torch.from_numpy(ints_to_limb_array([p[0] for p in vs]))
+    ys = torch.from_numpy(ints_to_limb_array([p[1] for p in vs]))
+    packed = msm_mod.planes_from_affine(xs, ys)
+    assert packed.shape == (L, 16) and int(packed.max()) < (1 << 30)
+    ux, uy = msm_mod.unpack_affine_planes(packed)
+    assert torch.equal(ux, xs) and torch.equal(uy, ys)
+
+
+def test_wrappers_route_by_device(lanes):
+    """CPU tensors take the twin and count no launch; a tensor on any other
+    device than the CPU or CUDA is refused, never silently computed."""
+    _, _, P, Q = lanes
+    ck.reset_launches()
+    assert all(torch.equal(a, b) for a, b in zip(ck.padd(tuple(P), tuple(Q)), ck.padd_plain(tuple(P), tuple(Q))))
+    assert torch.equal(ck.fmul(P.x, Q.x), ck.fmul_plain(P.x, Q.x))
+    assert ck.launch_counts() == {"fmul": 0, "padd": 0, "pdbl": 0, "bucket_masked": 0}
+    meta_dev = torch.empty((L, 4), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        ck.fmul(meta_dev, meta_dev)
+    with pytest.raises(ValueError):
+        ck.pdbl((P.x, P.y, meta_dev))
+
+
+
+def test_curve_helpers_vs_oracle(lanes):
+    """The curve ops around the kernels: pneg, pselect, peq, is_identity,
+    to_affine (batched inversion) and sum_points, on lazy inputs."""
+    ps, qs, P, Q = lanes
+    S = cv.padd(P, cv.pneg(P))
+    assert cv.is_identity(S).all()
+    x, y, inf = cv.to_affine(P)
+    assert inf.tolist() == [p is None for p in ps]
+    assert [None if i else (a, b) for a, b, i in zip(FQ.to_ints(x), FQ.to_ints(y), inf.tolist())] == ps
+    assert cv.peq(P, cv.from_affine_ints(ps)).all()
+    assert cv.peq(P, Q).tolist() == [p == q for p, q in zip(ps, qs)]
+    m = torch.arange(len(ps)) % 3 == 0
+    assert cv.to_host(cv.pselect(m, P, Q)) == [p if i % 3 == 0 else q for i, (p, q) in enumerate(zip(ps, qs))]
+    acc = None
+    for p in ps:
+        acc = F.p_add(acc, p)
+    assert cv.to_host(cv.sum_points(P, 0)) == [acc]
