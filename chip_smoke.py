@@ -3,26 +3,44 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  1. device: the card (nvidia-smi name and power limit), torch and CUDA
-     versions, and the nvcc build of every kernel from csrc/.
-  2. kernels: fmul, padd and pdbl at 65,536 lanes and the masked bucket
-     reduction at the n = 16384 decider's shape (and a small projective
-     shape), each held against its plain PyTorch twin (exact limb equality)
-     and, on a sample, against the pure-Python int oracle; median times of
-     kernel and twin by CUDA events.
-  3. urs: the 16384-generator URS generated on the card, sampled against
+  1. device: the card (nvidia-smi name, power limit and top SM clock), torch
+     and CUDA versions, and the nvcc build of every kernel from csrc/.
+  2. urs: the 16384-generator URS generated on the card, sampled against
      the int oracle.
-  4. chain: .chain_cache/chain_16384_10.bin through verify_chain and
-     decide_many (both must accept; wall times of the first run and the
-     median of three more), tampered copies through both (must reject with
-     the reference's messages), and the kernels' launch counts over the two
-     first accepting runs (each must be > 0).
-The last line is {"ok": true, "device": {...}}.  Any failure raises and
-exits non-zero; without CUDA the script exits 1 before printing anything.
+  3. kernels: fmul, padd and pdbl at 65,536 lanes, the masked bucket
+     reduction at the n = 16384 decider's shape (and a small projective
+     shape), and the row-permutation bucket kernel at the n = 16384 main
+     group's shapes (40 and 64 lanes, 128 slots, 7936 columns, URS rows
+     with about 5 % sentinel slots).  Each is held against its plain
+     PyTorch twin (exact limb equality) and, on a sample, against the
+     pure-Python int oracle; median times of kernel and twin by CUDA
+     events, and each kernel's bound: the larger of the least bytes its
+     function moves over the memory rate and the least 32-bit multiplies
+     it needs over the IMAD rate (see MIN_MULS_FMUL).
+  4. prove: build_chain(default_rng(7), 16384, 2) under each MSM setting
+     (sortrows, the default, then rowperm); both must equal the first two
+     step records of .chain_cache/chain_16384_10.bin byte for byte (the
+     JAX package built that file from the same rng; the depth is cut from
+     its 10 steps to 2, and step 1 already folds [acc, q]).
+  5. chain: .chain_cache/chain_16384_10.bin through verify_chain and
+     decide_many, first under sortrows and then under rowperm (both must
+     accept; wall times of the first run and the median of three more),
+     and tampered copies through both (must reject with the reference's
+     messages).
+  6. profile: one more sortrows run of each chain path, and one prover
+     step (build_chain with k = 1) under each setting, under torch.profiler
+     and under cProfile (tables in build/profile/).
+Every path runs with the launch counts set to 0 just before it and read
+just after it, and must launch the kernels its pipeline runs: bucket_accum
+on the rowperm paths, bucket_masked on the sortrows paths.  The run fails
+if any kernel has no launch over all paths.  The last line is
+{"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
+without CUDA the script exits 1 before printing anything.
 """
 
 from __future__ import annotations
 
+import contextlib
 import cProfile
 import json
 import os
@@ -39,7 +57,41 @@ CHAIN = os.path.join(REPO, ".chain_cache", "chain_16384_10.bin")
 PROFILE_DIR = os.path.join(REPO, "build", "profile")
 LANES = 65536
 BUCKET_SHAPE = (136, 31 * 256)  # pad', columns of the n = 16384 decider's main group
+ROWPERM_SHAPE = (128, 31 * 256)  # pad, columns of the n = 16384 rowperm main group
+N = 16384
+PROVE_STEPS = 2
 SEED = 20261016
+MEM_RATE = 3.35e12  # H100 SXM HBM3, bytes/s
+IMAD_PER_CLOCK_SM = 64  # 32-bit integer multiply(-add)s per clock per SM, compute capability 9.0
+SMS = 132
+# The bound counts the least work of each function, not of this
+# implementation.  Bytes: an Fq or Fr value is 32 bytes (255 bits), an
+# affine point 64, a projective one 96, a row index 4 (N + 1 < 2^32).
+# Operations: 32-bit multiplies (each 32 x 32 -> 64-bit product counted as
+# one IMAD, which is a lower bound).  A 255-bit modular multiply on s = 8
+# 32-bit limbs (Montgomery, CIOS) takes s^2 products for a * b and s^2 + s
+# for the reduction: 2 s^2 + s = 136.  Complete formulas for a = 0
+# (Renes-Costello-Batina 2016): a projective add (Alg. 7) 12 multiplies, a
+# mixed add of an affine point (Alg. 8) 11, a double (Alg. 9) 6 multiplies
+# and 2 squares = 8; the multiplies by 3b = 15 are shifts and adds.
+FQ_BYTES = 32
+MIN_MULS_FMUL = 2 * 8 * 8 + 8
+MIN_MULS_PADD = 12 * MIN_MULS_FMUL
+MIN_MULS_MADD = 11 * MIN_MULS_FMUL
+MIN_MULS_PDBL = 8 * MIN_MULS_FMUL
+# This implementation's own count, from csrc/field.cuh (18 15-bit limbs): a
+# field multiply is 18 x 18 limb products plus the 2c folds of reduce_wide
+# (8 nonzero digits x (22 + 17 + 3) limbs) and of fold_tail (8 x 3):
+# 324 + 336 + 24 = 684; mul_small 18 + 24 = 42; sub 24.  Reported beside
+# the bound as impl_muls32, to show how much of the gap is the limb choice.
+IMPL_MULS_FMUL = 684
+IMPL_MULS_PADD = 12 * IMPL_MULS_FMUL + 2 * 42 + 5 * 24  # curve.cuh padd: 12 mul, 2 mul_small, 5 sub
+IMPL_MULS_PDBL = 8 * IMPL_MULS_FMUL + 3 * 42 + 1 * 24  # curve.cuh pdbl: 8 mul, 3 mul_small, 1 sub
+# the kernels each path must launch: its MSM setting's bucket kernel, the
+# curve kernels, and on the verifier paths the field multiply of peq
+MUST_LAUNCH = {"sortrows": {"padd", "pdbl", "bucket_masked"},
+               "rowperm": {"padd", "pdbl", "bucket_accum"}}
+VERIFY_ALSO = {"fmul"}
 
 
 def emit(obj) -> None:
@@ -71,21 +123,89 @@ def wall(fn) -> float:
     return time.perf_counter() - t
 
 
+@contextlib.contextmanager
+def msm_impl(name: str):
+    """HALO_TPU_MSM_IMPL set to name for the block."""
+    old = os.environ.get("HALO_TPU_MSM_IMPL")
+    os.environ["HALO_TPU_MSM_IMPL"] = name
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("HALO_TPU_MSM_IMPL")
+        else:
+            os.environ["HALO_TPU_MSM_IMPL"] = old
+
+
+def counted(path: str, must: set, fn, launches: dict) -> float:
+    """Wall seconds of one run of fn with the launch counts zeroed just
+    before and read just after; the path must launch every kernel in must."""
+    from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
+
+    ck.reset_launches()
+    s = wall(fn)
+    launches[path] = ck.launch_counts()
+    missing = sorted(k for k in must if launches[path][k] == 0)
+    if missing:
+        raise AssertionError(f"{path} launched no {missing} kernel: {launches[path]}")
+    return s
+
+
 def phase_device():
     from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
 
-    smi = subprocess.run(
+    def smi(query):
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+
+    name_limit = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(name_limit, flush=True)
+    sm_mhz = float(smi("clocks.max.sm"))
     t = time.perf_counter()
     ck.load(verbose=True)
     build_s = time.perf_counter() - t
-    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0),
-          "build_s": round(build_s, 3)})
-    return smi
+    emit({"phase": "device", "nvidia_smi": name_limit, "clocks_max_sm_mhz": sm_mhz,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "kind": torch.cuda.get_device_name(0), "build_s": round(build_s, 3)})
+    return name_limit, sm_mhz
+
+
+def bound(nbytes: float, muls: float, impl_muls: float, sm_mhz: float) -> dict:
+    """The least time the card needs for the function: its least bytes over
+    the memory rate or its least 32-bit multiplies over the IMAD rate,
+    whichever is larger.  impl_muls (this implementation's multiplies) is
+    reported beside it and bounds nothing."""
+    t_bytes = nbytes / MEM_RATE
+    t_ops = muls / (SMS * IMAD_PER_CLOCK_SM * sm_mhz * 1e6)
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "muls32": muls, "impl_muls32": impl_muls}
+
+
+def phase_urs(dev):
+    from halo_accumulation_tpu_torch import fields as F
+    from halo_accumulation_tpu_torch import pp as pp_mod
+    from halo_accumulation_tpu_torch.ops.field import FQ
+
+    t = time.perf_counter()
+    pp = pp_mod.get_pp(N, dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    G = (F.G_X, F.G_Y)
+    idx = [0, 1, 2, 4095, 8191, N - 1]
+    xs = FQ.to_ints(pp.gs_x[:, idx])
+    ys = FQ.to_ints(pp.gs_y[:, idx])
+    for i, x, y in zip(idx, xs, ys):
+        if (x, y) != F.p_mul(pp_mod.gen_scalar(i + 2), G):
+            raise AssertionError(f"URS generator {i} disagrees with the int oracle")
+    if pp.s != F.p_mul(pp_mod.gen_scalar(0), G) or pp.h != F.p_mul(pp_mod.gen_scalar(1), G):
+        raise AssertionError("URS S/H disagree with the int oracle")
+    emit({"phase": "urs", "n": N, "gen_s": round(gen_s, 3), "sampled": idx})
+    return pp
 
 
 def _base_points(rng, k):
@@ -104,7 +224,14 @@ def _scaled(P, lam):
     return cv.PointVec(*(FQ.mul(c, lam) for c in P))
 
 
-def phase_kernels(dev):
+def _rand_lam(rng, n, dev):
+    from halo_accumulation_tpu_torch import fields as F
+    from halo_accumulation_tpu_torch.ops.field import FQ
+
+    return FQ.from_ints([int.from_bytes(rng.bytes(40), "little") % (F.Q - 1) + 1 for _ in range(n)], dev)
+
+
+def phase_kernels(dev, pp, sm_mhz):
     """Every kernel against its twin at the main path's shapes."""
     from halo_accumulation_tpu_torch import fields as F
     from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
@@ -115,12 +242,12 @@ def phase_kernels(dev):
     rng = np.random.default_rng(SEED)
     res = {}
 
-    def record(name, got, want, ms, plain_ms):
+    def record(name, got, want, ms, plain_ms, bnd, **extra):
         exact = all(torch.equal(g, w) for g, w in zip(got, want))
         err = max(int((g - w).abs().max()) for g, w in zip(got, want))
         if not exact:
             raise AssertionError(f"{name}: kernel != plain twin (max |diff| {err})")
-        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **bnd, **extra}
 
     # fmul: random lazy limbs (value < 2^257), canonical values mixed in
     lim = rng.integers(0, 1 << 15, size=(2, L, LANES), dtype=np.int64)
@@ -129,7 +256,8 @@ def phase_kernels(dev):
     got = ck.fmul(a, b)
     want = ck.fmul_plain(a, b)
     record("fmul", [got], [want], cuda_time(lambda: ck.fmul(a, b), 20),
-           cuda_time(lambda: ck.fmul_plain(a, b), 5))
+           cuda_time(lambda: ck.fmul_plain(a, b), 5),
+           bound(3 * FQ_BYTES * LANES, MIN_MULS_FMUL * LANES, IMPL_MULS_FMUL * LANES, sm_mhz))
     sample = rng.choice(LANES, 64, replace=False)
     ai = _raw_ints(a[:, sample])
     bi = _raw_ints(b[:, sample])
@@ -146,13 +274,14 @@ def phase_kernels(dev):
               for n, (j, k) in enumerate(zip(iq, kind))]
     P = cv.from_affine_ints(host_p, dev)
     Q = cv.from_affine_ints(host_q, dev)
-    lam1 = FQ.from_ints([int.from_bytes(rng.bytes(40), "little") % (F.Q - 1) + 1 for _ in range(LANES)], dev)
+    lam1 = _rand_lam(rng, LANES, dev)
     lam2 = torch.roll(lam1, 1, dims=1)
     P, Q = _scaled(P, lam1), _scaled(Q, lam2)
     got = ck.padd(tuple(P), tuple(Q))
     want = ck.padd_plain(tuple(P), tuple(Q))
     record("padd", got, want, cuda_time(lambda: ck.padd(tuple(P), tuple(Q)), 20),
-           cuda_time(lambda: ck.padd_plain(tuple(P), tuple(Q)), 5))
+           cuda_time(lambda: ck.padd_plain(tuple(P), tuple(Q)), 5),
+           bound(9 * FQ_BYTES * LANES, MIN_MULS_PADD * LANES, IMPL_MULS_PADD * LANES, sm_mhz))
     if cv.to_host(cv.PointVec(*(c[:, sample] for c in got))) != [
         F.p_add(host_p[i], host_q[i]) for i in sample
     ]:
@@ -160,7 +289,8 @@ def phase_kernels(dev):
     got = ck.pdbl(tuple(P))
     want = ck.pdbl_plain(tuple(P))
     record("pdbl", got, want, cuda_time(lambda: ck.pdbl(tuple(P)), 20),
-           cuda_time(lambda: ck.pdbl_plain(tuple(P)), 5))
+           cuda_time(lambda: ck.pdbl_plain(tuple(P)), 5),
+           bound(6 * FQ_BYTES * LANES, MIN_MULS_PDBL * LANES, IMPL_MULS_PDBL * LANES, sm_mhz))
     if cv.to_host(cv.PointVec(*(c[:, sample] for c in got))) != [
         F.p_add(host_p[i], host_p[i]) for i in sample
     ]:
@@ -182,8 +312,15 @@ def phase_kernels(dev):
     meta = torch.from_numpy((off | (ln << 3)).reshape(1, cols)).to(dev)
     got = ck.bucket_masked(M, meta)
     want = ck.bucket_masked_plain(M, meta)
+    # the function reads each live slot's affine point once (foreign slots
+    # need no read) and one 4-byte (off, len) word per column, and writes a
+    # projective point per column; each live slot is one mixed add
+    adds = int(np.minimum(ln, padp - off).sum())
     record("bucket_masked", got, want, cuda_time(lambda: ck.bucket_masked(M, meta), 10),
-           cuda_time(lambda: ck.bucket_masked_plain(M, meta), 2))
+           cuda_time(lambda: ck.bucket_masked_plain(M, meta), 2),
+           bound(adds * 2 * FQ_BYTES + cols * 4 + 3 * FQ_BYTES * cols, MIN_MULS_MADD * adds,
+                 IMPL_MULS_PADD * adds, sm_mhz),
+           shape=[L, padp, cols])
     srcn = src.cpu().numpy()
     for col in rng.choice(cols, 8, replace=False):
         acc = None
@@ -209,7 +346,43 @@ def phase_kernels(dev):
             acc = F.p_add(acc, host_p[src2n[p, col]])
         if cv.to_host(cv.PointVec(*(c[:, col : col + 1] for c in g2)))[0] != acc:
             raise AssertionError("bucket_masked (54 lanes) disagrees with the int oracle")
-    emit({"phase": "kernels", "lanes": LANES, "bucket_shape": [L, padp, cols], **res})
+
+    # bucket_accum at the n = 16384 rowperm main group: URS rows, affine (40
+    # lanes, the commit / decider MSMs) and projective with lazy limbs (64
+    # lanes, the prover's rounds); about 5 % of the slots hold the sentinel
+    pad, cols = ROWPERM_SHAPE
+    srcn = rng.integers(0, N, (pad, cols))
+    srcn[rng.random((pad, cols)) < 0.05] = N
+    src = torch.from_numpy(srcn).to(dev)
+    need = sorted(set(srcn[:, :8].reshape(-1).tolist()) - {N})
+    host = dict(zip(need, zip(FQ.to_ints(pp.gs_x[:, need]), FQ.to_ints(pp.gs_y[:, need]))))
+    host[N] = None
+    gs = pp.gs_points(N)
+    tables = {40: pp.gs_rows(N), 64: msm_mod.rows_from_points(_scaled(gs, _rand_lam(rng, N, dev)))}
+    # the function reads each of the N points once (64 bytes affine, 96
+    # projective) and a 4-byte row index per slot, and writes a projective
+    # point per column; each non-sentinel slot is one add (mixed for affine
+    # rows), while this kernel adds every slot, sentinels included
+    live = int((srcn != N).sum())
+    for lanes, rows in tables.items():
+        got = ck.bucket_accum(rows, src)
+        want = ck.bucket_accum_plain(rows, src)
+        point_bytes, muls = (2 * FQ_BYTES, MIN_MULS_MADD) if lanes == ck.AFFINE_LANES else (3 * FQ_BYTES, MIN_MULS_PADD)
+        record(f"bucket_accum_{lanes}", got, want, cuda_time(lambda: ck.bucket_accum(rows, src), 10),
+               cuda_time(lambda: ck.bucket_accum_plain(rows, src), 2),
+               bound(N * point_bytes + 4 * pad * cols + 3 * FQ_BYTES * cols, muls * live,
+                     IMPL_MULS_PADD * pad * cols, sm_mhz),
+               shape=[lanes, pad, cols])
+        for col in range(8):
+            acc = None
+            for p in range(pad):
+                acc = F.p_add(acc, host[int(srcn[p, col])])
+            if cv.to_host(cv.PointVec(*(c[:, col : col + 1] for c in got)))[0] != acc:
+                raise AssertionError(f"bucket_accum ({lanes} lanes) disagrees with the int oracle")
+    emit({"phase": "kernels", "lanes": LANES, **res})
+    # the kernels line reports the 64-lane shape (the prover's rounds, most
+    # of the launches) and carries both
+    res["bucket_accum"] = {**res["bucket_accum_64"], "by_lanes": {k: res[f"bucket_accum_{k}"] for k in tables}}
     return res
 
 
@@ -219,26 +392,30 @@ def _raw_ints(t):
     return limb_array_to_ints(t.cpu().numpy())
 
 
-def phase_urs(dev):
-    from halo_accumulation_tpu_torch import fields as F
-    from halo_accumulation_tpu_torch import pp as pp_mod
-    from halo_accumulation_tpu_torch.ops.field import FQ
+def phase_prove(pp, smi, launches):
+    """build_chain from default_rng(7) under each setting, held to the
+    committed chain's first step records byte for byte."""
+    from halo_accumulation_tpu_torch import chain
 
-    t = time.perf_counter()
-    pp = pp_mod.get_pp(16384, dev)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t
-    G = (F.G_X, F.G_Y)
-    idx = [0, 1, 2, 4095, 8191, 16383]
-    xs = FQ.to_ints(pp.gs_x[:, idx])
-    ys = FQ.to_ints(pp.gs_y[:, idx])
-    for i, x, y in zip(idx, xs, ys):
-        if (x, y) != F.p_mul(pp_mod.gen_scalar(i + 2), G):
-            raise AssertionError(f"URS generator {i} disagrees with the int oracle")
-    if pp.s != F.p_mul(pp_mod.gen_scalar(0), G) or pp.h != F.p_mul(pp_mod.gen_scalar(1), G):
-        raise AssertionError("URS S/H disagree with the int oracle")
-    emit({"phase": "urs", "n": 16384, "gen_s": round(gen_s, 3), "sampled": idx})
-    return pp
+    raw = open(CHAIN, "rb").read()
+    off = 16 + (8 if raw[:8] == chain.CHAIN_MAGIC else 0)  # d, k (and the tag) come first
+    out = {}
+    for impl in ("sortrows", "rowperm"):
+        built = {}
+        with msm_impl(impl):
+            s = counted(f"prove_{impl}", MUST_LAUNCH[impl],
+                        lambda: built.update(c=chain.build_chain(np.random.default_rng(7), N, PROVE_STEPS, pp)),
+                        launches)
+        d, qss, accs = built["c"]
+        pos = off
+        for step, rec in enumerate(chain.step_records(qss, accs)):
+            if raw[pos : pos + len(rec)] != rec:
+                raise AssertionError(f"prove under {impl}: step {step} differs from {os.path.basename(CHAIN)}")
+            pos += len(rec)
+        out[impl] = {"wall_s": s, "bytes_matched": pos - off, "launches": launches[f"prove_{impl}"]}
+    emit({"phase": "prove", "n": N, "steps": PROVE_STEPS, "reduced": f"depth {PROVE_STEPS} of the file's 10 steps",
+          "card": smi, "rng": "numpy default_rng(7)", "vs": os.path.basename(CHAIN), **out})
+    return out
 
 
 def _expect_reject(fn, msg: str) -> None:
@@ -251,50 +428,49 @@ def _expect_reject(fn, msg: str) -> None:
     raise AssertionError(f"tampered input accepted, expected {msg!r}")
 
 
-def phase_chain(pp, smi):
+def phase_chain(pp, smi, launches):
     from halo_accumulation_tpu_torch import acc as acc_mod
     from halo_accumulation_tpu_torch import chain
     from halo_accumulation_tpu_torch import fields as F
-    from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
 
     d, qss, accs = chain.load_chain(CHAIN)
     K = len(accs)
+
+    def bumped(a):
+        return acc_mod.Accumulator(a.C_bar, a.d, a.z, (a.v + 1) % F.R, a.pi, a.pi_V)
 
     paths = {
         "verify_chain": lambda: chain.verify_chain_fast(d, qss, accs, pp),
         "decide_many": lambda: chain.verify_chain_slow(accs, pp),
     }
-    first, launches, warm = {}, {}, {}
-    for path, fn in paths.items():
-        ck.reset_launches()
-        first[path] = wall(fn)
-        launches[path] = ck.launch_counts()
-        missing = [k for k, v in launches[path].items() if v == 0]
-        if missing:
-            raise AssertionError(f"{path} launched no {missing} kernel")
-    for path, fn in paths.items():
-        warm[path] = float(np.median([wall(fn) for _ in range(3)]))
-
-    def bumped(a):
-        return acc_mod.Accumulator(a.C_bar, a.d, a.z, (a.v + 1) % F.R, a.pi, a.pi_V)
-
-    _expect_reject(lambda: chain.verify_chain_fast(d, qss, accs[:-1] + [bumped(accs[-1])], pp),
-                   f"h(z) != v at step {K - 1}")
-    _expect_reject(lambda: chain.verify_chain_slow([bumped(accs[0]), accs[1]], pp),
-                   "C_(log_n) != CM.Commit_Sigma(c || v') (batch index 0)")
-    emit({"phase": "chain", "chain": os.path.basename(CHAIN), "d": d, "K": K,
-          "verify_chain_s": first["verify_chain"], "decide_many_s": first["decide_many"],
-          "verify_chain_warm_s": warm["verify_chain"], "decide_many_warm_s": warm["decide_many"],
-          "card": smi, "launches": launches, "tamper_rejected": 2})
-    return paths, warm, launches
+    out, warm = {}, {}
+    for impl in ("sortrows", "rowperm"):
+        first, warm[impl] = {}, {}
+        with msm_impl(impl):
+            for path, fn in paths.items():
+                tag = path if impl == "sortrows" else f"{path}_{impl}"
+                first[path] = counted(tag, MUST_LAUNCH[impl] | VERIFY_ALSO, fn, launches)
+            for path, fn in paths.items():
+                warm[impl][path] = float(np.median([wall(fn) for _ in range(3)]))
+            _expect_reject(lambda: chain.verify_chain_fast(d, qss, accs[:-1] + [bumped(accs[-1])], pp),
+                           f"h(z) != v at step {K - 1}")
+            _expect_reject(lambda: chain.verify_chain_slow([bumped(accs[0]), accs[1]], pp),
+                           "C_(log_n) != CM.Commit_Sigma(c || v') (batch index 0)")
+        out[impl] = {"verify_chain_s": first["verify_chain"], "decide_many_s": first["decide_many"],
+                     "verify_chain_warm_s": warm[impl]["verify_chain"],
+                     "decide_many_warm_s": warm[impl]["decide_many"], "tamper_rejected": 2}
+    emit({"phase": "chain", "chain": os.path.basename(CHAIN), "d": d, "K": K, "card": smi, **out,
+          "launches": {k: v for k, v in launches.items() if not k.startswith("prove")}})
+    return paths, warm["sortrows"]
 
 
 def phase_profile(paths, warm, smi) -> None:
-    """One warm run of each path under torch.profiler and one under
-    cProfile, tables written to PROFILE_DIR.  Device busy time is
+    """One warm run of each path under torch.profiler (device items) and
+    one under cProfile (host functions), tables written to PROFILE_DIR.
+    Device busy time is
     the union of the trace's device intervals (kernels, copies, memsets);
-    idle share is 1 - busy / wall, against the profiled wall time and
-    against the unprofiled warm median of phase 4."""
+    idle share is 1 - busy / wall, against the profiled wall time and,
+    where warm holds the path, against its unprofiled warm median."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -306,8 +482,10 @@ def phase_profile(paths, warm, smi) -> None:
             fn()
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t
-        dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                     if e.device_type == DeviceType.CUDA)
+        # the raw kineto events: prof.events() builds a tree over every host
+        # op, which takes minutes for a prover step's million of them
+        dev = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+                     for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA)
         if not dev:
             raise AssertionError(f"{path}: the trace holds no device activity")
         busy_us, hi = 0.0, float("-inf")
@@ -324,7 +502,6 @@ def phase_profile(paths, warm, smi) -> None:
                     f"{len(dev)} device events\n\n")
             for name, (calls, us) in top:
                 f.write(f"{us / 1e3:12.3f} ms {calls:7d}  {name}\n")
-            f.write("\n" + prof.key_averages().table(sort_by="cpu_time_total", row_limit=40))
         busy_s = busy_us / 1e6
         # host: a second warm run under cProfile, ranked by own time
         prof_host = cProfile.Profile()
@@ -338,9 +515,9 @@ def phase_profile(paths, warm, smi) -> None:
         replay_s = sum(ct for (f, _, fn_name), (_, _, _, ct, _) in st.stats.items()
                        if fn_name == "succinct_check_parts" and f.endswith("pcdl.py"))
         emit({"phase": "profile", "path": path, "card": smi, "wall_s": prof_wall,
-              "unprofiled_warm_s": warm[path], "device_busy_ms": busy_us / 1e3,
+              "unprofiled_warm_s": warm.get(path), "device_busy_ms": busy_us / 1e3,
               "device_events": len(dev), "idle_share": 1 - busy_s / prof_wall,
-              "idle_share_unprofiled": 1 - busy_s / warm[path],
+              "idle_share_unprofiled": 1 - busy_s / warm[path] if path in warm else None,
               "top_device_ms": [[n[:80], c, us / 1e3] for n, (c, us) in top[:8]],
               "host_cprofile_s": st.total_tt, "host_replays_s": replay_s,
               "host_top_own_s": [[name, tt] for tt, _, name in own[:8]]})
@@ -353,18 +530,32 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    smi = phase_device()
-    res = phase_kernels(dev)
+    smi, sm_mhz = phase_device()
     pp = phase_urs(dev)
-    paths, warm, launches = phase_chain(pp, smi)
-    phase_profile(paths, warm, smi)
+    res = phase_kernels(dev, pp, sm_mhz)
+    launches: dict[str, dict] = {}
+    phase_prove(pp, smi, launches)
+    paths, warm = phase_chain(pp, smi, launches)
+    with msm_impl("sortrows"):
+        phase_profile(paths, warm, smi)
+    from halo_accumulation_tpu_torch import chain
+
+    for impl in ("sortrows", "rowperm"):
+        with msm_impl(impl):
+            phase_profile({f"prove_{impl}_1step": lambda: chain.build_chain(np.random.default_rng(7), N, 1, pp)},
+                          {}, smi)
     from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
 
     kernels = []
     for name, k in ck.KERNELS.items():
+        total = sum(n[name] for n in launches.values())
+        if total == 0:
+            raise AssertionError(f"kernel {name} was launched on no path")
         kernels.append({"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-                        "launches": sum(n[name] for n in launches.values()),
-                        "launches_by_path": {p: n[name] for p, n in launches.items()}, **res[name]})
+                        "launches": total, "launches_by_path": {p: n[name] for p, n in launches.items()},
+                        **{key: res[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                           "bound_by", "library_ms")},
+                        **({"by_lanes": res[name]["by_lanes"]} if "by_lanes" in res[name] else {})})
     emit({"phase": "done", "total_s": round(time.perf_counter() - t0, 3)})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

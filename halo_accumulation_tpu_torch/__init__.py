@@ -1,24 +1,38 @@
-"""halo_accumulation_tpu_torch: the Halo accumulation verifier in PyTorch.
+"""halo_accumulation_tpu_torch: Halo accumulation in PyTorch.
 
 The PyTorch and CUDA port of `halo_accumulation_tpu` (which stays the
-reference).  This package holds the verifier side of an accumulation chain:
-Pasta field and curve arithmetic on (18, *batch) int64 limb tensors, the
-sort-payload Pippenger MSM, the URS, PCDL succinct checks and full checks,
-the ASDL verifier and decider, and chain loading.  On a CUDA device the
-point additions, doublings and the MSM's bucket reduction run as
-hand-written Hopper kernels (`csrc/`, built with nvcc at first use); on the
-CPU the same functions run their plain PyTorch twins.  Modules keep the JAX
-package's names; the list-form limb math of its `ops/limbs.py` lives in
-`csrc/field.cuh` and `csrc/curve.cuh`, and the Pallas kernels' wrappers
-become `ops/cuda_kernels.py`.
+reference).  This package builds and checks accumulation chains: Pasta
+field and curve arithmetic on (18, *batch) int64 limb tensors, the
+sort-payload and row-permutation Pippenger MSMs (HALO_TPU_MSM_IMPL=sortrows,
+the default, or rowperm), the URS, PCDL commit / open / succinct and full
+checks, the ASDL prover, verifier and decider, and chain building, saving
+and loading.  On a CUDA device the point additions, doublings and both
+MSMs' bucket reductions run as hand-written Hopper kernels (`csrc/`, built
+with nvcc at first use); on the CPU the same functions run their plain
+PyTorch twins.  Modules keep the JAX package's names; the list-form limb
+math of its `ops/limbs.py` lives in `csrc/field.cuh` and `csrc/curve.cuh`,
+and the Pallas kernels' wrappers become `ops/cuda_kernels.py`.
 
-    from halo_accumulation_tpu_torch import chain, pp
-    d, qss, accs = chain.load_chain(".chain_cache/chain_16384_10.bin")
-    params = pp.get_pp(d + 1, "cuda")
-    chain.verify_chain_fast(d, qss, accs, params)   # raises on reject
-    chain.verify_chain_slow(accs, params)
+Entry points run on the card unless the caller names the CPU:
+
+    import numpy as np
+    from halo_accumulation_tpu_torch import build_chain, get_pp, load_chain, verify_chain_fast
+    params = get_pp(16384)                     # on "cuda"; get_pp(n, "cpu") for the CPU
+    d, qss, accs = build_chain(np.random.default_rng(7), 16384, 2, params)
+    verify_chain_fast(d, qss, accs, params)   # raises on reject
+    d, qss, accs = load_chain(".chain_cache/chain_16384_10.bin")
 
 It imports torch and never jax.
 """
+
+from halo_accumulation_tpu_torch.chain import (  # noqa: E402
+    build_chain,
+    load_chain,
+    random_instance,
+    save_chain,
+    verify_chain_fast,
+    verify_chain_slow,
+)
+from halo_accumulation_tpu_torch.pp import get_pp  # noqa: E402
 
 __version__ = "0.1.0"

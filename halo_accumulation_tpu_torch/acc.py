@@ -1,9 +1,9 @@
-"""ASDL, verifier side: the accumulation verifier, the decider and the
-batched chain verifiers.
+"""ASDL: the accumulation prover, verifier and decider, and the batched chain
+verifiers.
 
-Counterpart of the verifier half of `halo_accumulation_tpu/acc.py` (the
-reference's acc.rs common_subroutine :135, verifier :223, decider :245),
-with the same Fiat-Shamir quirks:
+Counterpart of `halo_accumulation_tpu/acc.py` (the reference's acc.rs
+common_subroutine :135, prover :190, verifier :223, decider :245), with the
+same Fiat-Shamir quirks:
 
   * alpha = rho_1(AccumulatedHPolys) hashes the struct with alpha = None and
     alphas = [] (both serialized: a 0x00 option tag and an empty vec);
@@ -25,6 +25,8 @@ from halo_accumulation_tpu_torch import fields as F
 from halo_accumulation_tpu_torch import hostops as H
 from halo_accumulation_tpu_torch import pcdl
 from halo_accumulation_tpu_torch import pp as pp_mod
+from halo_accumulation_tpu_torch.ops import poly as poly_mod
+from halo_accumulation_tpu_torch.ops.field import FR
 from halo_accumulation_tpu_torch.utils import serialize as ser
 from halo_accumulation_tpu_torch.utils import transcript as tr
 
@@ -110,6 +112,16 @@ class AccumulatedHPolys:
             v = (v + h.eval(z) * self.alphas[i + 1]) % F.R
         return v
 
+    def coeffs_device(self, n: int, device):
+        """Dense coefficients (18, n) of h_0 + sum alpha^(i+1) h_i."""
+        acc = FR.from_ints(self.h_0 if self.h_0 is not None else [0], device)
+        if acc.shape[1] < n:
+            acc = torch.cat([acc, FR.zeros((n - acc.shape[1],), device)], dim=1)
+        for i, h in enumerate(self.hs):
+            hc = poly_mod.tensor_h_coeffs(FR.from_ints(h.xis, device))
+            acc = poly_mod.add(acc, poly_mod.scale(hc, FR.from_ints([self.alphas[i + 1]], device)[:, 0]))
+        return acc
+
 
 def _combine(qs_results, pi_V: AccumulatorHiding, pp: pp_mod.PublicParams):
     """Shared tail of common_subroutine: alpha, C, z and C_bar from the
@@ -137,6 +149,20 @@ def common_subroutine(d: int, qs: list[Instance], pi_V: AccumulatorHiding, pp: p
     results = pcdl.succinct_check_batch([(q.C, q.d, q.z, q.v, q.pi) for q in qs], pp)
     C_bar, z, hs = _combine(results, pi_V, pp)
     return C_bar, d, z, hs
+
+
+def prover(rng, d: int, qs: list[Instance], pp: pp_mod.PublicParams) -> Accumulator:
+    """Accumulation prover (acc.rs:190-220).  rng: a numpy Generator, drawn
+    from as the JAX prover draws (h_0's two coefficients, w, then open_'s
+    hiding draws), so the same rng gives the same accumulator bytes."""
+    h_0 = [int.from_bytes(rng.bytes(40), "little") % F.R for _ in range(2)]
+    U_0 = pcdl.commit(h_0, d, None, pp)
+    w = int.from_bytes(rng.bytes(40), "little") % F.R
+    pi_V = AccumulatorHiding(h=h_0, U=U_0, w=w)
+    C_bar, d, z, hs = common_subroutine(d, qs, pi_V, pp)
+    v = hs.eval(z)
+    pi = pcdl.open_(rng, hs.coeffs_device(d + 1, pp.device), C_bar, d, z, w, pp, v=v)
+    return Accumulator(C_bar=C_bar, d=d, z=z, v=v, pi=pi, pi_V=pi_V)
 
 
 def verifier(D: int, qs: list[Instance], acc: Accumulator, pp: pp_mod.PublicParams):

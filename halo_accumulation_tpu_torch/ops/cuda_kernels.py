@@ -1,13 +1,14 @@
 """The port's Hopper kernels: wrappers, launch counts and plain twins.
 
-Four CUDA kernels (sources in `halo_accumulation_tpu_torch/csrc/`) replace
-the Pallas kernels of `halo_accumulation_tpu/ops/pallas_kernels.py` that
-the verifier path runs:
+Five CUDA kernels (sources in `halo_accumulation_tpu_torch/csrc/`) replace
+every Pallas kernel of `halo_accumulation_tpu/ops/pallas_kernels.py`:
 
   fmul           <- _fmul_kernel           Fq multiply (the others' inner loop)
   padd           <- _padd_kernel           complete projective add
   pdbl           <- _pdbl_kernel           complete projective double
-  bucket_masked  <- _bucket_kernel_masked  masked bucket reduction of the MSM
+  bucket_masked  <- _bucket_kernel_masked  masked bucket reduction, sort-payload MSM
+  bucket_accum   <- _bucket_kernel_aff /   pad-axis bucket sums, row-permutation MSM
+                    _bucket_kernel_proj
 
 Each has a plain PyTorch twin here that computes the same limbs in the same
 operation order (the CUDA device functions mirror ops/limbs.py's list form;
@@ -30,6 +31,10 @@ from halo_accumulation_tpu_torch import runtime
 from halo_accumulation_tpu_torch.ops.field import FQ, I64, L, W
 
 B3 = 15  # 3 * b for y^2 = x^3 + 5
+# Row-table widths of the row-permutation MSM (ops/msm.rows_from_affine /
+# rows_from_points): affine x || y || Z-indicator || pad, projective
+# x || y || z || pad.
+AFFINE_LANES, PROJ_LANES = 40, 64
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
 
@@ -56,6 +61,8 @@ KERNELS = {
         Kernel("padd", "halo_accumulation_tpu/ops/pallas_kernels.py:69", [_VP] * 9 + [_I64, _VP]),
         Kernel("pdbl", "halo_accumulation_tpu/ops/pallas_kernels.py:346", [_VP] * 6 + [_I64, _VP]),
         Kernel("bucket_masked", "halo_accumulation_tpu/ops/pallas_kernels.py:262",
+               [_VP] * 5 + [_I32, _I64, _I64, _VP]),
+        Kernel("bucket_accum", "halo_accumulation_tpu/ops/pallas_kernels.py:170",
                [_VP] * 5 + [_I32, _I64, _I64, _VP]),
     )
 }
@@ -173,6 +180,29 @@ def bucket_masked_plain(M, meta):
     return ax, ay, az
 
 
+def decode_rows(t):
+    """(lanes, n) transposed table rows -> (x, y, z) limb tensors (18, n):
+    lanes 40 carry only Z's low limb (1 for a point, 0 for the sentinel)."""
+    x, y = t[:L], t[L : 2 * L]
+    if t.shape[0] == AFFINE_LANES:
+        z = torch.zeros_like(x)
+        z[0] = t[2 * L]
+        return x, y, z
+    return x, y, t[2 * L : 3 * L]
+
+
+def bucket_accum_plain(rows, src):
+    """Per column, the complete-add sum of rows[src[p, col]] over every slot
+    p = 0 .. pad - 1, from the identity (sentinel slots included).  rows
+    (nrows, 40 or 64), src (pad, cols) -> (x, y, z) each (18, cols)."""
+    pad, cols = src.shape
+    table = rows.T.contiguous()
+    acc = _identity_cols(cols, rows.device)
+    for p in range(pad):
+        acc = padd_plain(acc, decode_rows(table[:, src[p]]))
+    return acc
+
+
 # -- wrappers -------------------------------------------------------------------
 
 
@@ -264,4 +294,26 @@ def bucket_masked(M, meta):
     if cols:
         _launch("bucket_masked", M.data_ptr(), meta.data_ptr(), *(o.data_ptr() for o in outs),
                 lanes, padp, cols)
+    return tuple(outs)
+
+
+def bucket_accum(rows, src):
+    """Row-permutation bucket sums: rows (nrows, 40 or 64) int64 table,
+    src (pad, cols) int64 row indices in [0, nrows) -> (x, y, z) each
+    (18, cols).  The kernel gathers its rows itself; the indices are
+    trusted (the MSM builds them)."""
+    if _on_cpu(rows, src):
+        return bucket_accum_plain(rows, src)
+    if rows.dim() != 2 or rows.shape[1] not in (AFFINE_LANES, PROJ_LANES):
+        raise ValueError(f"bucket_accum takes (nrows, 40 or 64) rows, got {tuple(rows.shape)}")
+    if src.dim() != 2:
+        raise ValueError(f"bucket_accum takes (pad, cols) indices, got {tuple(src.shape)}")
+    if rows.dtype != I64 or src.dtype != I64:
+        raise TypeError("bucket_accum takes int64 rows and indices")
+    rows, src = rows.contiguous(), src.contiguous()
+    pad, cols = src.shape
+    outs = [torch.empty((L, cols), dtype=I64, device=rows.device) for _ in range(3)]
+    if cols:
+        _launch("bucket_accum", rows.data_ptr(), src.data_ptr(), *(o.data_ptr() for o in outs),
+                rows.shape[1], pad, cols)
     return tuple(outs)

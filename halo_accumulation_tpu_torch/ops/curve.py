@@ -107,15 +107,16 @@ def to_host(P: PointVec) -> list:
     with one device-to-host copy."""
     arr = torch.stack([c.reshape(L, -1) for c in P]).cpu().numpy()  # (3, L, n)
     xs, ys, zs = (limb_array_to_ints(arr[i]) for i in range(3))
-    out = []
-    for x, y, z in zip(xs, ys, zs):
-        z %= F.Q
-        if z == 0:
-            out.append(None)
-            continue
-        zinv = pow(z, -1, F.Q)
-        out.append((x * zinv % F.Q, y * zinv % F.Q))
-    return out
+    return [affine_int(x, y, z) for x, y, z in zip(xs, ys, zs)]
+
+
+def affine_int(x: int, y: int, z: int):
+    """Projective host ints -> affine (x, y), or None for the identity."""
+    z %= F.Q
+    if z == 0:
+        return None
+    zinv = pow(z, -1, F.Q)
+    return (x * zinv % F.Q, y * zinv % F.Q)
 
 
 def sum_points(P: PointVec, axis: int = 0) -> PointVec:

@@ -1,21 +1,34 @@
-"""Multi-scalar multiplication (Pippenger), sort-payload form, in PyTorch.
+"""Multi-scalar multiplication (Pippenger) in PyTorch.
 
-Counterpart of the verifier-path MSMs of `halo_accumulation_tpu/ops/msm.py`:
+Counterpart of `halo_accumulation_tpu/ops/msm.py`.  Two bucket pipelines,
+chosen by HALO_TPU_MSM_IMPL as in the JAX package (`_impl`):
 
-  * `_sortrows_msm` / `msm_flagged` / `msm_many_flagged`: the sort-payload
-    Pippenger.  Per window the point coordinate planes are sorted along with
-    the digit key, bucket boundaries come from searchsorted, buckets expand
-    with 8-row-aligned block gathers, and the masked bucket kernel
-    (ops/cuda_kernels.bucket_masked) sums each bucket, masking the ragged
-    block edges by a per-column (off, len) word.  Suffix-doubling weighting
-    and a Horner window combine finish the MSM.
-  * Zero digits go to bucket 0, which has weight 0 and is never gathered:
-    zero-padded scalar vectors cost almost nothing.
+  * "sortrows" (the default) - `_sortrows_msm` / `msm_flagged` /
+    `msm_many_flagged`: the sort-payload Pippenger.  Per window the point
+    coordinate planes are sorted along with the digit key, bucket
+    boundaries come from searchsorted, buckets expand with 8-row-aligned
+    block gathers, and the masked bucket kernel (ops/cuda_kernels.
+    bucket_masked) sums each bucket, masking the ragged block edges by a
+    per-column (off, len) word.  With route bits (nroute = 2) two scalar
+    vectors of disjoint support share one sort: the IPA prover's L and R.
+  * "rowperm" - `_rowperm_msm`: points live as rows of a table whose last
+    row is the identity sentinel; a packed-key sort gives each
+    (window, bucket, slot) cell its point's row index (`_perm_slots`), and
+    the bucket kernel (ops/cuda_kernels.bucket_accum) gathers and sums each
+    column's rows.  Narrow window groups fold their pad axis K ways across
+    columns first (`_bucket_group_rows`).
+  * Both finish with suffix-doubling bucket weighting and a Horner window
+    combine.  Zero digits go to bucket 0, which has weight 0: zero-padded
+    scalar vectors cost almost nothing on the sort-payload path.
   * Pads (the most points a bucket may hold) are PINNED per size class with
-    a device validity flag; on the rare overflow `msm` re-runs with pads
-    measured from the digits.
+    a device validity flag; on the rare overflow `msm` re-runs the same
+    pipeline with pads measured from the digits.
   * `msm_rows`: many small independent MSMs, one per row, by a 4-bit
     windowed double-and-add (the batched succinct checks).
+  * `fixed_base*`: the MSMs over the URS (commitments, the prover's rounds,
+    the deciders' deferred MSM).  They pick the pipeline and the URS table
+    it reads (`_sortrows` is the one reader of the setting), so pcdl.py
+    never branches on it.
 
 There is no jit here, so shapes need no padding to size classes: every call
 runs eagerly at its exact width.
@@ -24,6 +37,7 @@ runs eagerly at its exact width.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -36,7 +50,25 @@ NBITS = 255
 # Most point columns (window group x buckets x pad) one sorted group may
 # gather at once; larger window runs are split into several groups.
 _SORT_BUDGET_COLS = 1 << 24
-_SORTROWS_MIN = 128  # narrower MSMs take the exact ladder
+# The same for one row-permutation group's index matrix (the JAX package's
+# scatter budget; the port never materializes the gathered rows).
+_SCATTER_BUDGET_COLS = 1 << 21
+_SORTROWS_MIN = 128  # narrower MSMs take the row-permutation pipeline
+_LADDER_MAX = 256  # unpadded MSMs this narrow take the exact ladder
+# Column width the K-way pad fold fills (the JAX package's g = 1024).
+_FOLD_COLS = 1024
+
+
+def _impl() -> str:
+    """The bucket pipeline HALO_TPU_MSM_IMPL selects: "sortrows" (default)
+    or "rowperm".  The JAX package's third value, "staged", is not ported."""
+    impl = os.environ.get("HALO_TPU_MSM_IMPL", "sortrows")
+    if impl == "staged":
+        raise NotImplementedError(
+            "HALO_TPU_MSM_IMPL=staged is not ported yet (ROADMAP.md, queue 1: backstop MSM pipelines)")
+    if impl not in ("sortrows", "rowperm"):
+        raise ValueError(f"HALO_TPU_MSM_IMPL={impl!r}: expected 'sortrows' or 'rowperm'")
+    return impl
 
 
 def window_size(n: int) -> int:
@@ -152,6 +184,23 @@ def _masked_reduce(M, meta) -> cv.PointVec:
     return cv.PointVec(*ck.bucket_masked(M, meta))
 
 
+def _shift_adds(T: cv.PointVec, steps: int) -> cv.PointVec:
+    """`steps` rounds of T <- T + (T shifted left by 2^i along the last
+    axis, identity-filled): after lg(n) rounds position b holds the suffix
+    sum of positions >= b.  The shared step of the bucket weighting and the
+    strided sum."""
+    ident = cv.identity(T.batch_shape, T.x.device)
+    for i in range(steps):
+        sh = 1 << i
+        shifted = cv.PointVec(*(torch.cat([a[:, :, sh:], ia[:, :, :sh]], dim=2) for a, ia in zip(T, ident)))
+        T = cv.padd(T, shifted)
+    return T
+
+
+def _first(T: cv.PointVec) -> cv.PointVec:
+    return cv.PointVec(T.x[:, :, 0], T.y[:, :, 0], T.z[:, :, 0])
+
+
 def _suffix_weight(S: cv.PointVec, beff: int) -> cv.PointVec:
     """sum_{b >= 1} b * S_b per window: (18, Wg, beff) -> (18, Wg), by two
     suffix-doubling passes (the second after masking bucket 0)."""
@@ -159,21 +208,15 @@ def _suffix_weight(S: cv.PointVec, beff: int) -> cv.PointVec:
     dev = S.x.device
     if beff == 1:
         return cv.identity((Wg,), dev)
-    ident = cv.identity((Wg, beff), dev)
     lgB = beff.bit_length() - 1
+    T = _shift_adds(S, lgB)
+    T = cv.pselect(torch.arange(beff, device=dev) >= 1, T, cv.identity((Wg, beff), dev))
+    return _first(_shift_adds(T, lgB))
 
-    def shift_add(T, i):
-        sh = 1 << i
-        shifted = cv.PointVec(*(torch.cat([a[:, :, sh:], ia[:, :, :sh]], dim=2) for a, ia in zip(T, ident)))
-        return cv.padd(T, shifted)
 
-    T = S
-    for i in range(lgB):
-        T = shift_add(T, i)
-    T = cv.pselect(torch.arange(beff, device=dev) >= 1, T, ident)
-    for i in range(lgB):
-        T = shift_add(T, i)
-    return cv.PointVec(T.x[:, :, 0], T.y[:, :, 0], T.z[:, :, 0])
+def _strided_sum(T: cv.PointVec, K: int) -> cv.PointVec:
+    """Sum the last axis (size K, a power of two): (18, C, K) -> (18, C)."""
+    return _first(_shift_adds(T, K.bit_length() - 1))
 
 
 def _sorted_group(planes, digits_g, pad: int, beff: int, nroute: int = 1):
@@ -227,17 +270,29 @@ def _cat_groups(Vs):
     return cv.PointVec(*(torch.cat([v[i] for v in Vs], dim=1) for i in range(3)))
 
 
-def _sortrows_msm(planes, scalars, c: int, pads: list[int], beffs: list[int]):
-    """Sort-payload MSM: (point, ok flag), no host sync.  planes: (18, N)
-    pair-packed affine or (54, N) projective; N a multiple of 8."""
+def _route_digits(dg, route, beff: int):
+    """Shift each point's digits into its route's half of the bucket space."""
+    return dg + route[None] * beff
+
+
+def _sortrows_msm(planes, scalars, c: int, pads: list[int], beffs: list[int], route=None,
+                  nroute: int = 1):
+    """Sort-payload MSM: ([point] * nroute, ok flag), no host sync.  planes:
+    (18, N) pair-packed affine or (54, N) projective; N a multiple of 8.
+    route: optional (N,) int64 in [0, nroute) naming each point's output
+    (the supports must be disjoint: a point feeds one output)."""
     digits = _digits(scalars, c)
     Vs, oks = [], []
-    for w0, w1, beff, pad in _expand_groups_sorted(pads, beffs):
-        V, okv = _sorted_group(planes, digits[w0:w1], pad, beff)
+    for w0, w1, beff, pad in _expand_groups_sorted(pads, beffs, nroute):
+        dg = digits[w0:w1]
+        if route is not None:
+            dg = _route_digits(dg, route, beff)
+        V, okv = _sorted_group(planes, dg, pad, beff, nroute)
         Vs.append(V)
         oks.append(okv)
     acc = _horner_routes(_cat_groups(Vs), c)
-    return cv.PointVec(acc.x[:, 0], acc.y[:, 0], acc.z[:, 0]), torch.stack(oks).all()
+    outs = [cv.PointVec(acc.x[:, r], acc.y[:, r], acc.z[:, r]) for r in range(nroute)]
+    return outs, torch.stack(oks).all()
 
 
 def msm_many_flagged(planes, scalars_many, c: int, pads: list[int], beffs: list[int]):
@@ -271,25 +326,159 @@ def _pad_points(points: cv.PointVec, scalars, m: int):
     return points, scalars
 
 
+# -- row-permutation pipeline ------------------------------------------------------
+
+
+def rows_from_points(points: cv.PointVec):
+    """PointVec (18, N) -> (N + 1, 64) rows x || y || z || zero pad; row N
+    is the identity (0 : 1 : 0)."""
+    N = points.x.shape[1]
+    dev = points.x.device
+    rows = torch.zeros((N + 1, ck.PROJ_LANES), dtype=I64, device=dev)
+    rows[:N, : 3 * L] = torch.cat(list(points)).T
+    rows[N, L] = 1
+    return rows
+
+
+def rows_from_affine(xs, ys):
+    """Affine limbs (18, N) each -> (N + 1, 40) rows x || y || Z-indicator
+    || zero pad.  Lane 36 carries Z's low limb: 1 for a point, 0 for the
+    sentinel row N, whose y0 = 1 makes it the identity (0 : 1 : 0); an
+    all-zero row would be (0 : 0 : 0), which absorbs every sum it enters."""
+    N = xs.shape[1]
+    rows = torch.zeros((N + 1, ck.AFFINE_LANES), dtype=I64, device=xs.device)
+    rows[:N, :L] = xs.T
+    rows[:N, L : 2 * L] = ys.T
+    rows[:N, 2 * L] = 1
+    rows[N, L] = 1
+    return rows
+
+
+def _perm_slots(digits_g, pad: int, beff: int):
+    """Inverse permutation for one window group: digits_g (Wg, N) ->
+    (src (pad, Wg * beff) int64, ok flag).  src[p, w * beff + b] is the row
+    of the p-th point of bucket b in window w, or the sentinel N past the
+    bucket's count.  One sort of the packed key digit << ibits | index
+    (digit-major, index-minor: the JAX package's order), then bucket
+    boundaries by searchsorted.  ok is False iff a nonzero-digit bucket holds
+    more than pad points (bucket 0 has weight 0 and may overflow)."""
+    Wg, N = digits_g.shape
+    dev = digits_g.device
+    ibits = max(1, (N - 1).bit_length())
+    low = (1 << ibits) - 1
+    skey = torch.sort((digits_g << ibits) | torch.arange(N, device=dev), dim=1).values
+    bvals = (torch.arange(beff, dtype=I64, device=dev) << ibits).expand(Wg, beff).contiguous()
+    first = torch.searchsorted(skey, bvals, side="left")
+    # end of bucket b: the last key it can hold, (b << ibits) | low, so the
+    # top bucket's bound never leaves the key range
+    count = torch.searchsorted(skey, bvals | low, side="right") - first
+    ok = count[:, 1:].max() <= pad
+    order = skey & low
+    p = torch.arange(pad, device=dev)[None, :, None]
+    idx = (first[:, None, :] + p).clamp(max=N - 1).reshape(Wg, pad * beff)
+    got = torch.gather(order, 1, idx).reshape(Wg, pad, beff)
+    src = torch.where(p < count[:, None, :], got, N)
+    return src.permute(1, 0, 2).reshape(pad, Wg * beff), ok
+
+
+def _bucket_group_rows(rows, src, pad: int, Wg: int, beff: int) -> cv.PointVec:
+    """One window group's weighted bucket sums (18, Wg) from the row table
+    and inverse permutation: in-kernel gather and pad reduction, then the
+    suffix-doubling weighting.
+
+    K-way pad fold: when the group has fewer than _FOLD_COLS columns, slot
+    (p, col) moves to (p // K, col * K + p % K), so K slices of the pad
+    axis run side by side and the sequential reduction is K times shorter
+    (at n = 16384 the top window's 128 columns x pad 384 become 1024
+    columns x 48); the K partials per column then meet in a strided sum."""
+    cols = Wg * beff
+    nsent = rows.shape[0] - 1
+    K = 1
+    while cols * K * 2 <= _FOLD_COLS and K * 2 <= pad:
+        K *= 2
+    padq = (pad + K - 1) // K
+    if padq * K > pad:
+        fill = torch.full((padq * K - pad, cols), nsent, dtype=src.dtype, device=src.device)
+        src = torch.cat([src, fill])
+    if K > 1:
+        src = src.reshape(padq, K, cols).transpose(1, 2).reshape(padq, cols * K)
+    S = cv.PointVec(*(a.reshape(L, cols, K) for a in ck.bucket_accum(rows, src)))
+    S = _strided_sum(S, K) if K > 1 else _first(S)
+    return _suffix_weight(cv.PointVec(*(a.reshape(L, Wg, beff) for a in S)), beff)
+
+
+def _expand_groups(pads: list[int], beffs: list[int]):
+    """(pad, beff) runs split so each group's index matrix fits the budget."""
+    out = []
+    for w0, w1, beff, pad in _group_windows(pads, beffs):
+        wc = max(1, _SCATTER_BUDGET_COLS // (beff * pad))
+        for ws in range(w0, w1, wc):
+            out.append((ws, min(ws + wc, w1), beff, pad))
+    return out
+
+
+def _rowperm_msm(points: cv.PointVec, scalars, c: int, pads: list[int], beffs: list[int], rows=None):
+    """Row-permutation MSM: (point, ok flag), no host sync.  rows: an
+    optional precomputed table, projective (64 lanes) or affine (40 lanes;
+    the URS's `pp.gs_rows`); built from points when absent."""
+    if rows is None:
+        rows = rows_from_points(points)
+    digits = _digits(scalars, c)
+    Vs, oks = [], []
+    for w0, w1, beff, pad in _expand_groups(pads, beffs):
+        src, okv = _perm_slots(digits[w0:w1], pad, beff)
+        V = _bucket_group_rows(rows, src, pad, w1 - w0, beff)
+        Vs.append(cv.PointVec(*(a[:, :, None] for a in V)))
+        oks.append(okv)
+    acc = _horner_routes(_cat_groups(Vs), c)
+    return cv.PointVec(acc.x[:, 0], acc.y[:, 0], acc.z[:, 0]), torch.stack(oks).all()
+
+
+# -- entry points ----------------------------------------------------------------------
+
+
+def _sortrows(n: int) -> bool:
+    """Whether an n-point MSM takes the sort-payload pipeline: under the
+    default setting, at widths of _SORTROWS_MIN and up (narrower ones take
+    the row-permutation pipeline, as in the JAX package).  The one reader
+    of HALO_TPU_MSM_IMPL."""
+    return _impl() == "sortrows" and n >= _SORTROWS_MIN
+
+
+def _true(device):
+    return torch.ones((), dtype=torch.bool, device=device)
+
+
 def msm_flagged(points: cv.PointVec, scalars, c: int | None = None, pads: list[int] | None = None,
-                planes=None):
+                planes=None, rows=None):
     """MSM with PINNED pads and no host sync: (point, ok flag).  ok False
     means a bucket overflowed its pad and the point is unreliable (msm()
-    then re-runs with measured pads).  planes: precomputed coordinate
-    planes (the URS's pair-packed planes on the fixed-base paths)."""
+    then re-runs with measured pads).  Without pads, widths up to
+    _LADDER_MAX take the exact ladder.  planes / rows: the URS's
+    precomputed pair-packed planes (sort-payload) or row table
+    (row-permutation); each pipeline reads only its own."""
     N = points.x.shape[1]
-    if N < _SORTROWS_MIN or (pads is None and N <= 256):
-        return msm_ladder(points, scalars), torch.ones((), dtype=torch.bool, device=scalars.device)
+    if pads is None and N <= _LADDER_MAX:
+        return msm_ladder(points, scalars), _true(scalars.device)
     if c is None:
         c = window_size(N)
     if pads is None:
         pads = pinned_pads(N, c)
+    return _pipeline(points, scalars, c, pads, planes, rows)
+
+
+def _pipeline(points: cv.PointVec, scalars, c: int, pads: list[int], planes, rows):
+    """(point, ok) from the pipeline `_sortrows` selects."""
+    N = points.x.shape[1]
+    if not _sortrows(N):
+        return _rowperm_msm(points, scalars, c, pads, _beffs(c), rows=rows)
     if planes is None:
         points, scalars = _pad_points(points, scalars, 8)
         planes = planes_from_points(points)
     elif planes.shape[1] % 8:
         raise ValueError("sort-payload planes need N % 8 == 0")
-    return _sortrows_msm(planes, scalars, c, pads, _beffs(c))
+    (pt,), ok = _sortrows_msm(planes, scalars, c, pads, _beffs(c))
+    return pt, ok
 
 
 def _measure_pads(digits, c: int) -> list[int]:
@@ -302,22 +491,97 @@ def _measure_pads(digits, c: int) -> list[int]:
     return [_round_pad(max(1, int(m))) for m in counts.max(1).values.cpu()]
 
 
-def msm(points: cv.PointVec, scalars, c: int | None = None, planes=None) -> cv.PointVec:
+def _msm_measured(points: cv.PointVec, scalars, c: int | None = None, planes=None, rows=None):
+    """The selected pipeline with pads measured from the digits (one host
+    sync): the backstop after a pinned-pad overflow."""
+    if c is None:
+        c = window_size(points.x.shape[1])
+    pt, ok = _pipeline(points, scalars, c, _measure_pads(_digits(scalars, c), c), planes, rows)
+    assert bool(ok), "measured pads cover every bucket"
+    return pt
+
+
+def msm(points: cv.PointVec, scalars, c: int | None = None, planes=None, rows=None) -> cv.PointVec:
     """sum_i scalars_i * points_i: pinned pads first; on the rare overflow,
-    one re-run of the sort-payload MSM with pads measured from the digits."""
+    one re-run of the same pipeline with pads measured from the digits."""
     N = points.x.shape[1]
     if c is None:
         c = window_size(N)
-    pt, ok = msm_flagged(points, scalars, c=c, pads=pinned_pads(N, c), planes=planes)
+    pt, ok = msm_flagged(points, scalars, c=c, pads=pinned_pads(N, c), planes=planes, rows=rows)
     if bool(ok):
         return pt
-    if planes is None:
-        points, scalars = _pad_points(points, scalars, 8)
-        planes = planes_from_points(points)
-    pads = _measure_pads(_digits(scalars, c), c)
-    pt, ok = _sortrows_msm(planes, scalars, c, pads, _beffs(c))
-    assert bool(ok), "measured pads cover every bucket"
-    return pt
+    return _msm_measured(points, scalars, c, planes=planes, rows=rows)
+
+
+# -- fixed-base MSMs over the URS -------------------------------------------------------
+#
+# urs: a PublicParams (gs_points, gs_planes, gs_rows).  These pick the
+# pipeline and the URS table it reads, so the protocol layers never branch
+# on the MSM setting.
+
+
+def _urs_tables(urs, k: int, projective: bool) -> dict:
+    """The table of the first k generators the selected pipeline reads.
+    projective: 64-lane projective rows instead of 40-lane affine ones."""
+    if _sortrows(k):
+        return {"planes": urs.gs_planes(k)}
+    return {"rows": urs.gs_rows(k, projective)}
+
+
+def fixed_base_flagged(urs, scalars, projective: bool = False):
+    """sum_i scalars_i G_i over the first k = scalars.shape[1] generators
+    with pinned pads (the exact ladder up to _LADDER_MAX): (point, ok flag)."""
+    k = scalars.shape[1]
+    return msm_flagged(urs.gs_points(k), scalars, **_urs_tables(urs, k, projective))
+
+
+def fixed_base(urs, scalars, projective: bool = False) -> cv.PointVec:
+    """fixed_base_flagged, re-run with measured pads on an overflow.  The
+    prover's rounds and U read projective rows under the row-permutation
+    setting, as the JAX package's (its msm() builds them from the points)."""
+    pt, ok = fixed_base_flagged(urs, scalars, projective)
+    if bool(ok):
+        return pt
+    k = scalars.shape[1]
+    return _msm_measured(urs.gs_points(k), scalars, **_urs_tables(urs, k, projective))
+
+
+def _split_routes(s_comb, route):
+    """Dual-MSM scalars -> the L and R scalar vectors, each zero off its route."""
+    zero = torch.zeros_like(s_comb)
+    lo = (route == 0)[None]
+    return torch.where(lo, s_comb, zero), torch.where(lo, zero, s_comb)
+
+
+def fixed_base_pair(urs, scalars, route, safe: bool = False):
+    """One IPA round's L and R over the first n generators: the MSMs of
+    scalars over the points of route 0 and of route 1, ([L, R], ok flag).
+    The sort-payload pipeline computes both in one pass at the half-width's
+    window and pads; otherwise, and when safe (the re-run after an
+    overflow), two fixed_base calls."""
+    n = scalars.shape[1]
+    if n > _LADDER_MAX and not safe and _sortrows(n):
+        c = window_size(n // 2)
+        return _sortrows_msm(urs.gs_planes(n), scalars, c, pinned_pads(n // 2, c), _beffs(c),
+                             route=route, nroute=2)
+    return [fixed_base(urs, e, projective=True) for e in _split_routes(scalars, route)], _true(scalars.device)
+
+
+def fixed_base_many_flagged(urs, scalars_many):
+    """K MSMs over the first n generators: scalars_many (18, K, n) ->
+    (PointVec (18, K), ok flag).  Sort-payload: one K-fold MSM; up to
+    _LADDER_MAX points: one batched ladder; row-permutation: one pinned-pad
+    MSM per row, as the JAX package's check_device."""
+    K, n = scalars_many.shape[1:]
+    if _sortrows(n):
+        c = window_size(n)
+        return msm_many_flagged(urs.gs_planes(n), scalars_many, c, pinned_pads(n, c), _beffs(c))
+    if n <= _LADDER_MAX:
+        pts = cv.PointVec(*(a[:, None].expand(L, K, n) for a in urs.gs_points(n)))
+        return msm_rows(pts, scalars_many), _true(scalars_many.device)
+    outs = [fixed_base_flagged(urs, scalars_many[:, k]) for k in range(K)]
+    comm = cv.PointVec(*(torch.stack([pt[i] for pt, _ in outs], dim=1) for i in range(3)))
+    return comm, torch.stack([ok for _, ok in outs]).all()
 
 
 def msm_ladder(points: cv.PointVec, scalars) -> cv.PointVec:

@@ -1,12 +1,24 @@
-"""PCDL, verifier side: commitments, succinct checks and full checks.
+"""PCDL: commitments, the IPA opening proof, succinct checks and full checks.
 
-Counterpart of the verifier half of `halo_accumulation_tpu/pcdl.py`
-(the reference's pcdl.rs commit :99, succinct_check :252, check :323).
-Every Fiat-Shamir challenge of a succinct check depends only on proof
-data, so the transcript replays on the host and the group equation comes
-back as one MSM row (points, scalars) that must sum to the identity; many
-rows batch into one `msm_rows` call on the device.  Proof objects live on
-the host as canonical ints.
+Counterpart of `halo_accumulation_tpu/pcdl.py` (the reference's pcdl.rs
+commit :99, open :120, succinct_check :252, check :323):
+
+  * Every Fiat-Shamir challenge of a succinct check depends only on proof
+    data, so the transcript replays on the host and the group equation
+    comes back as one MSM row (points, scalars) that must sum to the
+    identity; many rows batch into one `msm_rows` call on the device.
+  * `open_` is the JAX package's host-transcript prover: the lg(n) fold
+    rounds hash on the host, and each round's L and R are fixed-base MSMs
+    over the ORIGINAL URS with tensor-coefficient scalars (the basis never
+    folds).  Under the sort-payload MSM one dual-output pass computes both
+    per round; under the row-permutation MSM, two MSMs
+    (`msm.fixed_base_pair` chooses; this module never reads the MSM
+    setting).  One copy per round
+    brings both points and both dot products to the host.  The JAX
+    package's device-transcript prover gives the same proof bytes and is
+    not ported yet.
+
+Proof objects live on the host as canonical ints.
 """
 
 from __future__ import annotations
@@ -19,7 +31,7 @@ from halo_accumulation_tpu_torch import fields as F
 from halo_accumulation_tpu_torch import hostops as H
 from halo_accumulation_tpu_torch import pp as pp_mod
 from halo_accumulation_tpu_torch.ops import curve as cv, msm as msm_mod, poly as poly_mod
-from halo_accumulation_tpu_torch.ops.field import FR, L
+from halo_accumulation_tpu_torch.ops.field import FR, L, limb_array_to_ints
 from halo_accumulation_tpu_torch.utils import serialize as ser
 from halo_accumulation_tpu_torch.utils import transcript as tr
 
@@ -112,39 +124,168 @@ def _pad_pow2(coeffs, n: int):
     return coeffs
 
 
-def commit_device(coeffs, d: int, pp: pp_mod.PublicParams):
-    """Non-hiding commitment left on the device: (point, ok flag) from the
-    pinned-pad MSM over the URS's pair-packed planes."""
+def _check_degree(d: int, pp: pp_mod.PublicParams) -> int:
     n = d + 1
     if n & (n - 1) or n > pp.n:
         raise ValueError("d + 1 must be a power of two no larger than the URS")
-    coeffs = _pad_pow2(coeffs, n)
-    k = coeffs.shape[1]
-    planes = pp.gs_planes(k) if k >= msm_mod._SORTROWS_MIN else None
-    return msm_mod.msm_flagged(pp.gs_points(k), coeffs, planes=planes)
+    return n
+
+
+def commit_device(coeffs, d: int, pp: pp_mod.PublicParams):
+    """Non-hiding commitment left on the device: (point, ok flag) from the
+    pinned-pad MSM over the URS's precomputed table."""
+    n = _check_degree(d, pp)
+    return msm_mod.fixed_base_flagged(pp, _pad_pow2(coeffs, n))
 
 
 def commit(coeffs, d: int, w: int | None, pp: pp_mod.PublicParams) -> Point:
     """Pedersen commitment of a coefficient vector over G[0..d+1], plus w*S
     when hiding.  coeffs: (18, k) Fr tensor or a list of ints (k <= d + 1);
     up to 8 listed coefficients commit on the host."""
-    n = d + 1
-    if n & (n - 1) or n > pp.n:
-        raise ValueError("d + 1 must be a power of two no larger than the URS")
+    n = _check_degree(d, pp)
     if isinstance(coeffs, list):
         if len(coeffs) <= 8:
             C = host_msm(coeffs, pp.gs_host(len(coeffs)))
             return C if w is None else H.p_add(C, H.p_mul(w, pp.s))
         coeffs = FR.from_ints(coeffs, pp.device)
+    C = point_to_host(msm_mod.fixed_base(pp, _pad_pow2(coeffs, n)))
+    return C if w is None else H.p_add(C, H.p_mul(w, pp.s))
+
+
+# -- the IPA opening proof ----------------------------------------------------------
+
+
+def open_(rng, coeffs, C: Point, d: int, z: int, w: int | None, pp: pp_mod.PublicParams,
+          _safe: bool = False, v: int | None = None) -> EvalProof:
+    """IPA opening proof of p(z) = v for the polynomial committed in C
+    (pcdl.rs:120-242), the JAX package's host-transcript path.  rng: a numpy
+    Generator, drawn from exactly as the JAX prover draws (the hiding
+    polynomial's k - 1 coefficients, then w_bar), so the same rng gives the
+    same proof bytes.  coeffs: (18, k) Fr tensor or list of ints; hiding iff
+    w is not None; v: p(z) when the caller knows it.
+
+    The sort-payload rounds leave their pinned-pad flags on the device and
+    check them once at the end; on the astronomically rare overflow the
+    proof is rebuilt with _safe=True (every MSM measures its pads), drawing
+    fresh prover randomness, as the JAX package does."""
+    n = _check_degree(d, pp)
+    dev = pp.device
+    if isinstance(coeffs, list):
+        coeffs = FR.from_ints(coeffs, dev)
+    orig_coeffs = coeffs
     coeffs = _pad_pow2(coeffs, n)
     k = coeffs.shape[1]
-    pt, ok = commit_device(coeffs, d, pp)
-    if bool(ok):
-        C = point_to_host(pt)
+    zl = FR.from_ints([z], dev)[:, 0]
+    if v is None:
+        v = FR.to_ints(poly_mod.eval_poly(coeffs, zl))[0]
+
+    if w is not None:
+        # p_bar = (X - z) * q with q uniform of degree k - 2
+        qc = [int.from_bytes(rng.bytes(40), "little") % F.R for _ in range(k - 1)]
+        p_bar = _mul_by_linear(FR.from_ints(qc, dev), zl)
+        w_bar = int.from_bytes(rng.bytes(40), "little") % F.R
+        C_bar = commit(p_bar, d, w_bar, pp)
+        a = tr.rho_0(ser.ser_point(C), ser.ser_scalar(z), ser.ser_scalar(v), ser.ser_point(C_bar))
+        coeffs = _add_scaled(coeffs, p_bar, FR.from_ints([a], dev)[:, 0])
+        w_prime = (w_bar * a + w) % F.R
+        C_prime = H.p_add(H.p_add(C, H.p_mul(a, C_bar)), H.p_neg(H.p_mul(w_prime, pp.s)))
     else:
-        planes = pp.gs_planes(k) if k >= msm_mod._SORTROWS_MIN else None
-        C = point_to_host(msm_mod.msm(pp.gs_points(k), coeffs, planes=planes))
-    return C if w is None else H.p_add(C, H.p_mul(w, pp.s))
+        C_bar, w_prime, C_prime = None, None, C
+
+    xi = tr.rho_0(ser.ser_point(C_prime), ser.ser_scalar(z), ser.ser_scalar(v))
+    H_prime = H.p_mul(xi, pp.h)
+
+    # The lg(n) rounds, expansion-based: a width-n tensor-coefficient vector
+    # t tracks the folded basis over the original URS, so L_i and R_i are
+    # fixed-base MSMs with disjoint supports (_open_round_pre), and
+    # U = <t_final, G>.  The fold itself is field-only.
+    cs = coeffs
+    if k < n:
+        cs = torch.cat([cs, FR.zeros((n - k,), dev)], dim=1)
+    zs = poly_mod.powers(zl, n)
+    t = FR.from_int(1, (n,), dev)
+    Ls, Rs, flags = [], [], []
+    m = n // 2
+    while m >= 1:
+        s_comb, route, dot_l, dot_r = _open_round_pre(cs, zs, t, m)
+        (Lp, Rp), okv = msm_mod.fixed_base_pair(pp, s_comb, route, safe=_safe)
+        flags.append(okv)
+        Lph, Rph, dl, dr = _fetch_round(Lp, Rp, dot_l, dot_r)
+        Lh = H.p_add(Lph, H.p_mul(dl, H_prime))
+        Rh = H.p_add(Rph, H.p_mul(dr, H_prime))
+        Ls.append(Lh)
+        Rs.append(Rh)
+        xi = tr.rho_0(ser.ser_scalar(xi), ser.ser_point(Lh), ser.ser_point(Rh))
+        xi_inv = pow(xi, -1, F.R)
+        cs, zs, t = _open_round_fold(cs, zs, t, m, FR.from_ints([xi], dev)[:, 0],
+                                     FR.from_ints([xi_inv], dev)[:, 0])
+        m //= 2
+
+    if flags and not bool(torch.stack(flags).all()):
+        # a pinned pad overflowed: rebuild the proof through measured pads
+        return open_(rng, orig_coeffs, C, d, z, w, pp, _safe=True)
+    # U = G^(lg n)[0] = <t_final, G>: t_final is h's coefficient vector
+    U = point_to_host(msm_mod.fixed_base(pp, t, projective=True))
+    c = FR.to_ints(cs[:, 0])[0]
+    return EvalProof(Ls, Rs, U, c, C_bar, w_prime)
+
+
+def _fetch_round(Lp: cv.PointVec, Rp: cv.PointVec, dot_l, dot_r):
+    """One round's device outputs in ONE copy: both points (host affine)
+    and both dot products (canonical ints)."""
+    blob = torch.stack([Lp.x, Lp.y, Lp.z, Rp.x, Rp.y, Rp.z, dot_l, dot_r], dim=1).cpu().numpy()
+    x1, y1, z1, x2, y2, z2, dl, dr = limb_array_to_ints(blob)
+    return cv.affine_int(x1, y1, z1), cv.affine_int(x2, y2, z2), dl % F.R, dr % F.R
+
+
+def _open_round_pre(cs, zs, t, m: int):
+    """Pre-fold quantities of one round at width n, half-width m (cs / zs
+    lanes >= 2m are zero, t is dense):
+
+      s_comb[j] = t[j] * c[(j mod m) + m]  if (j & m) == 0   (L's scalars)
+                  t[j] * c[j mod m]        otherwise         (R's scalars)
+      route[j]  = (j & m) != 0             (the output lane j feeds)
+      dot_l     = <c_hi, z_lo>,  dot_r = <c_lo, z_hi>"""
+    n = cs.shape[1]
+    dev = cs.device
+    i = torch.arange(n, device=dev)
+    jm = i & (m - 1)
+    lo = (i & m) == 0
+    s_comb = FR.mul(t, torch.where(lo[None], cs[:, jm + m], cs[:, jm]))
+    route = (~lo).to(torch.int64)
+    mask = (i < m)[None]
+    ip = (i + m).clamp(max=n - 1)
+    zero = torch.zeros_like(cs)
+    c_hi = torch.where(mask, cs[:, ip], zero)
+    z_hi = torch.where(mask, zs[:, ip], zero)
+    dot_l = FR.sum_along(FR.mul(c_hi, zs), 0)
+    dot_r = FR.sum_along(FR.mul(torch.where(mask, cs, zero), z_hi), 0)
+    return s_comb, route, dot_l, dot_r
+
+
+def _open_round_fold(cs, zs, t, m: int, xi, xi_inv):
+    """Fold cs / zs with the round challenge (pcdl.rs:216-224) and absorb xi
+    into t at bit lg(m); lanes >= m of cs / zs become zero."""
+    n = cs.shape[1]
+    i = torch.arange(n, device=cs.device)
+    mask = (i < m)[None]
+    ip = (i + m).clamp(max=n - 1)
+    zero = torch.zeros_like(cs)
+    c_new = torch.where(mask, FR.add(cs, poly_mod.scale(cs[:, ip], xi_inv)), zero)
+    z_new = torch.where(mask, FR.add(zs, poly_mod.scale(zs[:, ip], xi)), zero)
+    t_new = torch.where(((i & m) != 0)[None], poly_mod.scale(t, xi), t)
+    return c_new, z_new, t_new
+
+
+def _mul_by_linear(q, zl):
+    """(X - z) * q(X) for coefficients q (18, k): (18, k + 1)."""
+    zero = FR.zeros((1,), q.device)
+    return FR.sub(torch.cat([zero, q], dim=1), torch.cat([poly_mod.scale(q, zl), zero], dim=1))
+
+
+def _add_scaled(a, b, s):
+    """a + s * b for coefficient tensors of equal length."""
+    return FR.add(a, poly_mod.scale(b, s))
 
 
 def succinct_check_parts(C: Point, d: int, z: int, v: int, pi: EvalProof, pp: pp_mod.PublicParams):
@@ -235,22 +376,14 @@ def succinct_check(C: Point, d: int, z: int, v: int, pi: EvalProof, pp: pp_mod.P
 def deferred_device(hs: list[HPoly], Us: list[Point], d: int, pp: pp_mod.PublicParams):
     """The deciders' deferred checks U == Commit(h coefficients) for K
     checks at one degree, left on the device: (K,) bool, AND the pinned-pad
-    flag.  The K h expansions and the K n-point MSMs run batched."""
-    n = d + 1
-    if n & (n - 1) or n > pp.n:
-        raise ValueError("d + 1 must be a power of two no larger than the URS")
+    flag.  The K h expansions run batched; so do the K n-point MSMs under
+    the sort-payload pipeline, while the row-permutation one commits each
+    claim on its own (`msm.fixed_base_many_flagged`)."""
+    _check_degree(d, pp)
     K = len(hs)
     xis = FR.from_ints([x for h in hs for x in h.xis], pp.device)
     hcs = poly_mod.tensor_h_coeffs(xis.reshape(L, K, -1))  # (18, K, n)
-    if n >= msm_mod._SORTROWS_MIN:
-        c = msm_mod.window_size(n)
-        comm, flag = msm_mod.msm_many_flagged(
-            pp.gs_planes(n), hcs, c, msm_mod.pinned_pads(n, c), msm_mod._beffs(c)
-        )
-    else:
-        g = pp.gs_points(n)
-        pts = cv.PointVec(*(a[:, None].expand(L, K, n) for a in g))
-        comm, flag = msm_mod.msm_rows(pts, hcs), torch.ones((), dtype=torch.bool, device=pp.device)
+    comm, flag = msm_mod.fixed_base_many_flagged(pp, hcs)
     return cv.peq(comm, cv.from_affine_ints(Us, pp.device)) & flag
 
 

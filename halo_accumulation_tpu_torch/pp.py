@@ -76,6 +76,7 @@ class PublicParams:
         self.h = h
         self._gs_host: list = []
         self._gs_planes: dict[int, torch.Tensor] = {}
+        self._gs_rows: dict[tuple[int, bool], torch.Tensor] = {}
 
     @property
     def device(self) -> torch.device:
@@ -95,6 +96,19 @@ class PublicParams:
             self._gs_planes[n] = r
         return r
 
+    def gs_rows(self, n: int, projective: bool = False):
+        """First n generators as a cached row table, the gather source of the
+        row-permutation fixed-base MSMs: (n + 1, 40) affine rows, or
+        (n + 1, 64) projective ones (Z = 1), the form of the prover's rounds."""
+        r = self._gs_rows.get((n, projective))
+        if r is None:
+            if projective:
+                r = msm_mod.rows_from_points(self.gs_points(n))
+            else:
+                r = msm_mod.rows_from_affine(self.gs_x[:, :n], self.gs_y[:, :n])
+            self._gs_rows[(n, projective)] = r
+        return r
+
     def gs_host(self, k: int = 8) -> list:
         """First k generators as host affine int pairs (cached prefix)."""
         if len(self._gs_host) < k:
@@ -105,7 +119,7 @@ class PublicParams:
 
 
 def generate(n: int, device=None) -> PublicParams:
-    """Compute the n-generator URS on `device`."""
+    """Compute the n-generator URS on `device` (the card by default)."""
     if n & (n - 1):
         raise ValueError("URS size must be a power of two")
     dev = runtime.device(device)
@@ -125,8 +139,9 @@ _pp_cache: dict = {}
 
 
 def get_pp(n: int, device=None) -> PublicParams:
-    """The n-generator URS on `device`, generated once per process and
-    sliced from the largest one held."""
+    """The n-generator URS on `device` (the card by default; "cpu" only when
+    named), generated once per process and sliced from the largest one
+    held."""
     dev = runtime.device(device)
     key = (n, str(dev))
     if key in _pp_cache:

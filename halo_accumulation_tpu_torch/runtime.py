@@ -1,8 +1,9 @@
 """Device selection and the nvcc build of the CUDA kernels.
 
 There is no global backend switch: every entry point takes a `device`, and
-`device()` only turns a user's choice into a torch.device ("cuda" when asked
-for and present, an explicit "cpu" otherwise).
+`device()` only turns a user's choice into a torch.device.  The card is the
+default: no choice means "cuda", which raises without a card; the CPU runs
+only when a caller names it.
 
 Kernels are plain-C-interface shared libraries: each `csrc/<name>.cu` is
 compiled by nvcc for sm_90a into `build/kernels/<name>-<hash>.so` at first
@@ -29,11 +30,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 
 
 def device(name: str | torch.device | None = None) -> torch.device:
-    """torch.device for a user's choice: 'cuda' (raises without a card),
-    'cpu', or None for the CPU."""
-    if name is None:
-        return torch.device("cpu")
-    dev = torch.device(name)
+    """torch.device for a user's choice: None or 'cuda' (raises without a
+    card), or an explicit 'cpu'."""
+    dev = torch.device("cuda" if name is None else name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA device requested but torch.cuda.is_available() is False")
     return dev

@@ -144,10 +144,18 @@ def test_decide_many_rejects_tampered_v(loaded, pp):
 
 
 def test_port_imports_no_jax():
+    """The port, its prover included, loads and runs without JAX: an
+    opening proof at n = 2 is made and checked, and the chain builder is
+    importable, with no jax, jaxlib or JAX-package module loaded."""
     code = (
-        "import sys, halo_accumulation_tpu_torch\n"
+        "import sys, numpy as np, halo_accumulation_tpu_torch\n"
         "from halo_accumulation_tpu_torch import acc, chain, pcdl, pp, runtime\n"
         "from halo_accumulation_tpu_torch.ops import cuda_kernels, curve, field, msm, poly\n"
+        "assert chain.build_chain is halo_accumulation_tpu_torch.build_chain and acc.prover\n"
+        "p = pp.get_pp(2, 'cpu')\n"
+        "C = pcdl.commit([3, 4], 1, None, p)\n"
+        "pi = pcdl.open_(np.random.default_rng(0), [3, 4], C, 1, 5, None, p)\n"
+        "pcdl.check(C, 1, 5, 23, pi, p)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'halo_accumulation_tpu'))\n"
         "assert not bad, bad\n"
     )

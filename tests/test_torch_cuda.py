@@ -1,5 +1,6 @@
 """The port's CUDA kernels on an NVIDIA GPU: each kernel against its plain
-twin, and the verifier path on a committed chain.
+twin, the verifier path on a committed chain under both MSM settings, and
+the prover rebuilding a committed chain's first step byte for byte.
 
 Every test here needs a card and skips without one.  The file imports no
 JAX, so it also runs where only the port is installed:
@@ -21,6 +22,9 @@ pytestmark = pytest.mark.cuda
 
 CHAIN = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, ".chain_cache", "chain_512_10.bin")
 LANES = 4096
+# the kernels each path must launch, by MSM setting
+MUST_LAUNCH = {"sortrows": {"fmul", "padd", "pdbl", "bucket_masked"},
+               "rowperm": {"fmul", "padd", "pdbl", "bucket_accum"}}
 
 
 @pytest.fixture
@@ -86,18 +90,66 @@ def test_bucket_masked_matches_twin(cuda, rng, lanes):
     assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
 
 
-def test_chain_verifier_on_card(cuda):
+@pytest.mark.parametrize("lanes", [40, 64])
+def test_bucket_accum_matches_twin(cuda, rng, lanes):
+    """Gathered row sums at a small shape: URS rows (projective ones with
+    lazy limbs), about 5 % sentinel slots."""
+    n, pad, cols = 64, 24, 512
+    pp = pp_mod.get_pp(n, "cpu")
+    if lanes == 40:
+        rows = pp.gs_rows(n)
+    else:
+        lam = FQ.from_ints([int(x) for x in rng.integers(1, 1 << 62, n)])
+        rows = msm_mod.rows_from_points(cv.PointVec(*(FQ.mul(c, lam) for c in pp.gs_points(n))))
+    src = rng.integers(0, n, (pad, cols))
+    src[rng.random((pad, cols)) < 0.05] = n
+    src = torch.from_numpy(src)
+    before = ck.launch_counts()["bucket_accum"]
+    got = ck.bucket_accum(rows.to(cuda), src.to(cuda))
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["bucket_accum"] == before + 1
+    want = ck.bucket_accum_plain(rows, src)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("impl", ["sortrows", "rowperm"])
+def test_chain_verifier_on_card(cuda, monkeypatch, impl):
+    """Both verifier paths under one MSM setting, the launch counts zeroed
+    just before each path: each must launch its setting's kernels."""
+    monkeypatch.setenv("HALO_TPU_MSM_IMPL", impl)
     d, qss, accs = chain.load_chain(CHAIN)
     pp = pp_mod.get_pp(d + 1, cuda)
     for run in (lambda: chain.verify_chain_fast(d, qss, accs, pp), lambda: chain.verify_chain_slow(accs, pp)):
         ck.reset_launches()
         run()
-        assert all(n > 0 for n in ck.launch_counts().values()), ck.launch_counts()
+        counts = ck.launch_counts()
+        assert all(counts[k] > 0 for k in MUST_LAUNCH[impl]), counts
     bad = acc_mod.Accumulator(accs[0].C_bar, accs[0].d, accs[0].z, (accs[0].v + 1) % F.R, accs[0].pi, accs[0].pi_V)
     with pytest.raises(ValueError, match=r"^h\(z\) != v at step 0$"):
         chain.verify_chain_fast(d, qss[:1], [bad], pp)
     with pytest.raises(ValueError, match=r"^C_\(log_n\) != CM\.Commit_Sigma\(c \|\| v'\) \(batch index 0\)$"):
         chain.verify_chain_slow([bad, accs[1]], pp)
+
+
+@pytest.mark.parametrize("impl", ["sortrows", "rowperm"])
+def test_prover_rebuilds_committed_chain(cuda, monkeypatch, impl):
+    """build_chain from default_rng(7) (the JAX package's builder seed)
+    rebuilds the first step of chain_512_10.bin byte for byte, and the
+    verifiers accept what it built."""
+    monkeypatch.setenv("HALO_TPU_MSM_IMPL", impl)
+    _, fqss, faccs = chain.load_chain(CHAIN)
+    pp = pp_mod.get_pp(512, cuda)
+    ck.reset_launches()
+    d, qss, accs = chain.build_chain(np.random.default_rng(7), 512, 1, pp)
+    counts = ck.launch_counts()
+    assert all(counts[k] > 0 for k in MUST_LAUNCH[impl] - {"fmul"}), counts
+    assert chain.step_records(qss, accs) == chain.step_records(fqss[:1], faccs[:1])
+    chain.verify_chain_fast(d, qss, accs, pp)
+    chain.verify_chain_slow(accs, pp)
+
+
+def test_default_device_is_cuda(cuda):
+    assert pp_mod.get_pp(64).device == pp_mod.get_pp(64, cuda).device == torch.device("cuda", 0)
 
 
 def test_zero_width_launches_nothing(cuda):
@@ -106,4 +158,6 @@ def test_zero_width_launches_nothing(cuda):
     assert ck.fmul(e, e).shape == (L, 0)
     assert all(t.shape == (L, 0) for t in ck.padd((e, e, e), (e, e, e)) + ck.pdbl((e, e, e)))
     ck.bucket_masked(torch.empty((L, 8, 0), dtype=torch.int64, device=cuda), torch.empty((1, 0), dtype=torch.int64, device=cuda))
+    rows = torch.zeros((3, 40), dtype=torch.int64, device=cuda)
+    assert all(t.shape == (L, 0) for t in ck.bucket_accum(rows, torch.empty((8, 0), dtype=torch.int64, device=cuda)))
     assert ck.launch_counts() == before

@@ -1,11 +1,13 @@
-"""Port parity of the plain twins of the four Hopper kernels.
+"""Port parity of the plain twins of the five Hopper kernels.
 
 On the CPU each wrapper runs its plain PyTorch twin.  The twins are held to
 the JAX package: fmul/padd/pdbl to the list-form limb math that is the body
 of the Pallas kernels (ops/limbs.py, run here on numpy) and to the stacked
-JAX curve ops, limb for limb; the masked bucket reduction to per-column sums
-on the int oracle, with dead and foreign slots.  The kernels themselves are
-held to these twins on a card by tests/test_torch_cuda.py."""
+JAX curve ops, limb for limb; the row-permutation bucket sums to the body
+of _bucket_kernel_aff / _bucket_kernel_proj, limb for limb; the masked
+bucket reduction to per-column sums on the int oracle, with dead and
+foreign slots.  The kernels themselves are held to these twins on a card by
+tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ import torch
 
 from halo_accumulation_tpu import fields as F
 from halo_accumulation_tpu.ops import curve as jcv, limbs
+from halo_accumulation_tpu.ops import pallas_kernels as pk
 from halo_accumulation_tpu.ops.field import FQ as JFQ
 from halo_accumulation_tpu.runtime import cached_jit
 from halo_accumulation_tpu_torch.ops import cuda_kernels as ck, curve as cv, msm as msm_mod
@@ -145,6 +148,41 @@ def test_bucket_masked_twin_vs_oracle(rng, lanes):
     assert cv.is_identity(cv.PointVec(*got))[dead].all()
 
 
+@pytest.mark.parametrize("lanes", [40, 64], ids=["affine40", "proj64"])
+def test_bucket_accum_twin_matches_pallas_body(rng, lanes):
+    """bucket_accum_plain equals the body of _bucket_kernel_aff /
+    _bucket_kernel_proj limb for limb: the list-form padd folded over the
+    pad axis from the identity (0 : 1 : 0), every slot added, sentinels
+    included, run as plain jnp on numpy lanes (the Pallas interpreter is
+    too slow here, as in tests/test_pallas.py).  The sums also equal the
+    int oracle's."""
+    pts = [rand_point(rng) for _ in range(10)]
+    P = cv.from_affine_ints(pts)
+    rows = msm_mod.rows_from_affine(P.x, P.y) if lanes == 40 else msm_mod.rows_from_points(lazy(P, rng))
+    assert rows.shape == (len(pts) + 1, lanes)
+    pad, cols = 3, 128
+    src = rng.integers(0, len(pts) + 1, (pad, cols))  # len(pts): the sentinel row
+    src[:, :4] = len(pts)  # all-sentinel columns: the identity
+    got = ck.bucket_accum(rows, torch.from_numpy(src))
+    Mt = rows.numpy().astype(np.uint32)[src].transpose(2, 0, 1)  # (lanes, pad, cols), as _bucket_call's input
+    zero = np.zeros(cols, np.uint32)
+    acc = ([zero] * L, [zero + 1] + [zero] * (L - 1), [zero] * L)
+    for p in range(pad):
+        xs = [Mt[i, p] for i in range(L)]
+        ys = [Mt[L + i, p] for i in range(L)]
+        zs = [Mt[2 * L, p]] + [zero] * (L - 1) if lanes == 40 else [Mt[2 * L + i, p] for i in range(L)]
+        acc = pk.padd_limbs(acc, (xs, ys, zs))
+    for g, w in zip(got, acc):
+        assert np.array_equal(g.numpy(), as_np(w))
+    want = []
+    for c in range(cols):
+        s = None
+        for p in range(pad):
+            s = F.p_add(s, pts[src[p, c]] if src[p, c] < len(pts) else None)
+        want.append(s)
+    assert cv.to_host(cv.PointVec(*got)) == want
+
+
 def test_affine_planes_roundtrip(rng):
     vs = [rand_point(rng) for _ in range(16)]
     xs = torch.from_numpy(ints_to_limb_array([p[0] for p in vs]))
@@ -162,7 +200,7 @@ def test_wrappers_route_by_device(lanes):
     ck.reset_launches()
     assert all(torch.equal(a, b) for a, b in zip(ck.padd(tuple(P), tuple(Q)), ck.padd_plain(tuple(P), tuple(Q))))
     assert torch.equal(ck.fmul(P.x, Q.x), ck.fmul_plain(P.x, Q.x))
-    assert ck.launch_counts() == {"fmul": 0, "padd": 0, "pdbl": 0, "bucket_masked": 0}
+    assert ck.launch_counts() == {"fmul": 0, "padd": 0, "pdbl": 0, "bucket_masked": 0, "bucket_accum": 0}
     meta_dev = torch.empty((L, 4), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
         ck.fmul(meta_dev, meta_dev)

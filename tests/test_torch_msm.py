@@ -1,20 +1,25 @@
 """Port parity of the MSM, polynomial and URS layers.
 
 The MSM's host-side planning (window sizes, bucket spaces, pinned pads and
-window groups) must equal the JAX package's; the sort-payload MSM, the
-batched row MSMs and the K-fold fixed-base MSM must equal the int oracle;
-the decider's h(X) expansion must evaluate like the JAX HPoly; the URS must
-equal the int oracle (and the JAX package's cached URS where present)."""
+window groups) must equal the JAX package's; the sort-payload MSM (one and
+two routes), the batched row MSMs and the K-fold fixed-base MSM must equal
+the int oracle; the row-permutation MSM's inverse permutation must equal
+the JAX package's, and its result the JAX package's and the int oracle's,
+for both row forms; the decider's h(X) expansion must evaluate like the JAX
+HPoly; the URS must equal the int oracle (and the JAX package's cached URS
+where present)."""
 
 import pathlib
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from halo_accumulation_tpu import fields as F, pcdl as jpcdl
-from halo_accumulation_tpu.ops import msm as jmsm
-from halo_accumulation_tpu_torch import pp as pp_mod
+from halo_accumulation_tpu.ops import curve as jcv, msm as jmsm
+from halo_accumulation_tpu.ops.field import FR as JFR
+from halo_accumulation_tpu_torch import pcdl, pp as pp_mod, runtime
 from halo_accumulation_tpu_torch.ops import curve as cv, msm, poly
 from halo_accumulation_tpu_torch.ops.field import FR, L
 
@@ -61,6 +66,8 @@ def test_planning_matches_jax():
             beffs = msm._beffs(c)
             assert msm._group_windows(pads, beffs) == jmsm._group_windows(pads, beffs)
             assert msm._expand_groups_sorted(pads * 3, beffs * 3) == jmsm._expand_groups_sorted(pads * 3, beffs * 3, 1)
+            assert msm._expand_groups_sorted(pads, beffs, 2) == jmsm._expand_groups_sorted(pads, beffs, 2)
+            assert msm._expand_groups(pads, beffs) == jmsm._expand_groups(pads, beffs)
     # the n = 16384 decider: c = 8, 32 windows, top window cut to 128 buckets
     assert msm.window_size(16384) == 8 and msm._beffs(8)[:2] == [128, 256]
     assert msm.pinned_pads(16384, 8)[:2] == [384, 128]
@@ -213,3 +220,121 @@ def test_urs_matches_jax_cache():
     gx, gy, s, h = pp_mod.to_numpy(pp)
     assert np.array_equal(gx, z["gs_x"]) and np.array_equal(gy, z["gs_y"])
     assert s == (int(z["s_x"]), int(z["s_y"])) and h == (int(z["h_x"]), int(z["h_y"]))
+
+
+def test_dual_route_sortrows_vs_oracle(rng, base):
+    """Two scalar vectors of disjoint support in one sort (route bits, the
+    prover's L and R): each output equals its own MSM."""
+    n = 128
+    pts = [base[i % len(base)] for i in range(n)]
+    scs = rand_scalars(rng, n)
+    route = rng.integers(0, 2, n)
+    c = msm.window_size(n // 2)
+    P = cv.from_affine_ints(pts)
+    outs, ok = msm._sortrows_msm(msm.planes_from_points(P), FR.from_ints(scs), c, msm.pinned_pads(n // 2, c),
+                                 msm._beffs(c), route=torch.from_numpy(route), nroute=2)
+    assert bool(ok)
+    want = [oracle_msm([s for s, r in zip(scs, route) if r == k], [p for p, r in zip(pts, route) if r == k])
+            for k in (0, 1)]
+    assert [cv.to_host(o)[0] for o in outs] == want
+
+
+def test_msm_impl_selector(monkeypatch, urs):
+    """HALO_TPU_MSM_IMPL as the JAX package reads it: sortrows by default,
+    rowperm on request; staged (not ported) and unknown values raise, in
+    _impl and through a commitment: no other pipeline runs in their place."""
+    monkeypatch.delenv("HALO_TPU_MSM_IMPL", raising=False)
+    assert msm._impl() == "sortrows" == jmsm._impl()
+    monkeypatch.setenv("HALO_TPU_MSM_IMPL", "rowperm")
+    assert msm._impl() == "rowperm" == jmsm._impl()
+    coeffs = FR.from_ints([1] * 64)
+    for value, err in (("staged", NotImplementedError), ("sortrow", ValueError)):
+        monkeypatch.setenv("HALO_TPU_MSM_IMPL", value)
+        with pytest.raises(err, match="ROADMAP" if value == "staged" else "sortrow"):
+            msm._impl()
+        with pytest.raises(err):
+            pcdl.commit_device(coeffs, 63, urs)
+
+
+@pytest.mark.parametrize("top", [False, True], ids=["random", "top_bucket_last_index"])
+def test_perm_slots_matches_jax(rng, top):
+    """The inverse permutation and its flag equal the JAX package's, with a
+    point in the top bucket at the largest index in the second case."""
+    Wg, N, beff, pad = 3, 64, 16, 8
+    d = rng.integers(0, beff, (Wg, N))
+    if top:
+        d[:, -1] = beff - 1
+        d[1, :12] = 5  # bucket 5 of window 1 overflows pad 8
+    src, ok = msm._perm_slots(torch.from_numpy(d), pad, beff)
+    jsrc, jok = jmsm._perm_slots(jnp.asarray(d.astype(np.uint32)), pad, beff)
+    assert np.array_equal(src.numpy(), np.asarray(jsrc)) and bool(ok) == bool(jok) == (not top)
+    if top:
+        assert (src.numpy()[:, beff - 1 :: beff] == N - 1).any(axis=0).all()
+
+
+def test_perm_slots_top_bucket_at_2_pow_32():
+    """The JAX package's uint32 edge beff << ibits == 2^32 (c = 12 at
+    N = 2^20): the port's int64 key has none, and a point in the top bucket
+    still lands in its slot."""
+    N, beff = 1 << 20, 4096
+    d = torch.zeros((1, N), dtype=torch.int64)
+    d[0, 5] = beff - 1
+    d[0, 7] = 1
+    src, ok = msm._perm_slots(d, 4, beff)
+    assert bool(ok)
+    assert src[0, beff - 1] == 5 and src[1, beff - 1] == N and src[0, 1] == 7
+
+
+@pytest.mark.parametrize("form", ["projective", "affine"])
+def test_rowperm_msm_matches_jax(rng, monkeypatch, base, form):
+    """_rowperm_msm at n = 64, c = 4 from each row form: the same point as
+    the JAX package's _rowperm_msm and the int oracle (canonical points:
+    sort orders and folds may change the projective representative)."""
+    monkeypatch.setenv("HALO_TPU_MSM_IMPL", "rowperm")
+    n, c = 64, 4
+    pts = [base[i % len(base)] for i in range(n)]
+    scs = rand_scalars(rng, n)
+    P, S = cv.from_affine_ints(pts), FR.from_ints(scs)
+    jP = jcv.PointVec(*(jnp.asarray(a.numpy().astype(np.uint32)) for a in P))
+    jS = jnp.asarray(S.numpy().astype(np.uint32))
+    rows = msm.rows_from_points(P) if form == "projective" else msm.rows_from_affine(P.x, P.y)
+    jrows = jmsm.rows_from_points(jP) if form == "projective" else jmsm.rows_from_affine(jP.x, jP.y)
+    assert np.array_equal(rows.numpy(), np.asarray(jrows).astype(np.int64))
+    pads, beffs = msm.pinned_pads(n, c), msm._beffs(c)
+    R, ok = msm._rowperm_msm(P, S, c, pads, beffs, rows=rows)
+    jR, jok = jmsm._rowperm_msm(jP, jS, c, pads, beffs, rows=jrows)
+    assert bool(ok) and bool(jok)
+    assert cv.to_host(R) == [jpcdl.point_to_host(jR)] == [oracle_msm(scs, pts)]
+
+
+def test_rowperm_zero_heavy_affine_rows(monkeypatch, urs):
+    """Mostly zero scalars over the URS's affine rows: nearly every slot is
+    the sentinel, which must decode as (0 : 1 : 0), not (0 : 0 : 0)."""
+    monkeypatch.setenv("HALO_TPU_MSM_IMPL", "rowperm")
+    n = 64
+    scs = [7, 11] + [0] * (n - 2)
+    got = msm.msm(urs.gs_points(n), FR.from_ints(scs), c=4, rows=urs.gs_rows(n))
+    assert cv.to_host(got) == [F.p_msm(scs[:2], urs.gs_host(2))]
+
+
+def test_rowperm_overflow_flags_and_reruns(base, monkeypatch):
+    """Constant scalars overflow pinned pads of 4: the flag goes False and
+    msm() still returns the right point through measured pads."""
+    monkeypatch.setenv("HALO_TPU_MSM_IMPL", "rowperm")
+    n, k = 64, 12345
+    pts = [base[i % len(base)] for i in range(n)]
+    P, S = cv.from_affine_ints(pts), FR.from_ints([k] * n)
+    _, ok = msm.msm_flagged(P, S, c=4, pads=[4] * msm.num_windows(4))
+    assert not bool(ok)
+    assert cv.to_host(msm.msm(P, S, c=4)) == [F.p_mul(k, F.p_msm([1] * n, pts))]
+
+
+def test_default_device_is_the_card():
+    """No device means the card: get_pp(n) lands on CUDA, or raises where
+    there is none; the CPU is used only when named."""
+    if torch.cuda.is_available():
+        assert pp_mod.get_pp(16).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pp_mod.get_pp(16)
+    assert runtime.device("cpu") == torch.device("cpu") and pp_mod.get_pp(16, "cpu").device.type == "cpu"
