@@ -4,14 +4,20 @@
 
 Phases, each printing one JSON line:
   1. device: the card (nvidia-smi name, power limit and top SM clock), torch
-     and CUDA versions, and the nvcc build of every kernel from csrc/.
+     and CUDA versions, and the nvcc build of every kernel from csrc/;
+     then ptxas: each kernel function's registers and spills.
   2. urs: the 16384-generator URS generated on the card, sampled against
      the int oracle.
-  3. kernels: fmul, padd and pdbl at 65,536 lanes, the masked bucket
-     reduction at the n = 16384 decider's shape (and a small projective
-     shape), and the row-permutation bucket kernel at the n = 16384 main
-     group's shapes (40 and 64 lanes, 128 slots, 7936 columns, URS rows
-     with about 5 % sentinel slots).  Each is held against its plain
+  3. kernels: fmul and padd at 65,536 lanes; pdbl with k = 1, 4, 8
+     doublings per launch at 1, 10, 32 and 65,536 lanes, reported at
+     decide_many's Horner combine (10 lanes, k = 8) and timed at k = 8 from
+     1 to 65,536 lanes; the masked bucket reduction at the n = 16384
+     decider's shape with a uniform fill, at both deciders' real fills
+     (digits of random scalars over the URS, through the sort-payload MSM's
+     own gather) and at the prover's projective round shape, timed at every
+     split; and the row-permutation bucket kernel at the n = 16384
+     main group's shapes (40 and 64 lanes, 128 slots, 7936 columns, URS
+     rows with about 5 % sentinel slots).  Each is held against its plain
      PyTorch twin (exact limb equality) and, on a sample, against the
      pure-Python int oracle; median times of kernel and twin by CUDA
      events, and each kernel's bound: the larger of the least bytes its
@@ -58,6 +64,13 @@ PROFILE_DIR = os.path.join(REPO, "build", "profile")
 LANES = 65536
 BUCKET_SHAPE = (136, 31 * 256)  # pad', columns of the n = 16384 decider's main group
 ROWPERM_SHAPE = (128, 31 * 256)  # pad, columns of the n = 16384 rowperm main group
+PROVER_ROUND_SHAPE = (104, 2 * 31 * 256)  # pad', columns of the prover's dual-route round at n = 16384
+PDBL_CHECKED = (1, 10, 32, 65536)  # pdbl widths held to the twin at k = 1, 4, 8
+PDBL_TIMED = (1, 10, 32, 1024, 16384, 65536)  # pdbl widths timed at k = PDBL_K
+PDBL_K = 8
+PDBL_PATH_LANES = 10  # decide_many's Horner combine: its ten stacked deciders, PDBL_K = c doublings a window
+SPLITS = (1, 2, 4, 8, 16)  # bucket_masked threads per column, all timed
+TWIN_MAX_LANES = 1 << 18  # widest bucket_masked_plain run (T * cols lanes): its multiplies take 16 GB at 2^20
 N = 16384
 PROVE_STEPS = 2
 SEED = 20261016
@@ -167,11 +180,14 @@ def phase_device():
     print(name_limit, flush=True)
     sm_mhz = float(smi("clocks.max.sm"))
     t = time.perf_counter()
-    ck.load(verbose=True)
+    ck.load()
     build_s = time.perf_counter() - t
     emit({"phase": "device", "nvidia_smi": name_limit, "clocks_max_sm_mhz": sm_mhz,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kind": torch.cuda.get_device_name(0), "build_s": round(build_s, 3)})
+    # ptxas -v of every kernel function: registers (entry functions), stack
+    # frame and spill bytes
+    emit({"phase": "ptxas", **ck.ptxas_report()})
     return name_limit, sm_mhz
 
 
@@ -231,6 +247,120 @@ def _rand_lam(rng, n, dev):
     return FQ.from_ints([int.from_bytes(rng.bytes(40), "little") % (F.Q - 1) + 1 for _ in range(n)], dev)
 
 
+def _same(what: str, got, want) -> None:
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: kernel != plain twin")
+
+
+def _doubled(P, k: int):
+    """2^k P of host points, on the int oracle."""
+    from halo_accumulation_tpu_torch import fields as F
+
+    for _ in range(k):
+        P = [F.p_add(p, p) for p in P]
+    return P
+
+
+def _pdbl_widths(P, host_p, sm_mhz) -> dict:
+    """pdbl with k doublings per launch: held to pdbl_plain(P, k) for
+    k = 1, 4, 8 at the PDBL_CHECKED widths, a few lanes to the int oracle's
+    2^k P; then microseconds per doubling at the PDBL_TIMED widths, ten
+    launches of k = PDBL_K per timed run, beside the bound of that width
+    (the function's least work per doubling)."""
+    from halo_accumulation_tpu_torch.ops import curve as cv
+    from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
+
+    for n in PDBL_CHECKED:
+        Pn = tuple(c[:, :n] for c in P)
+        for k in (1, 4, 8):
+            want = ck.pdbl_plain(Pn, k)
+            _same(f"pdbl k={k} n={n}", ck.pdbl(Pn, k), want)
+            if cv.to_host(cv.PointVec(*(c[:, :4] for c in want))) != _doubled(host_p[: min(n, 4)], k):
+                raise AssertionError(f"pdbl k={k} disagrees with the int oracle")
+    out = {}
+    for n in PDBL_TIMED:
+        Pn = tuple(c[:, :n].contiguous() for c in P)
+        ms = cuda_time(lambda: [ck.pdbl(Pn, PDBL_K) for _ in range(10)], 5)
+        b = bound(6 * FQ_BYTES * n, MIN_MULS_PDBL * PDBL_K * n, IMPL_MULS_PDBL * PDBL_K * n, sm_mhz)
+        out[n] = {"us_per_double": ms * 1e3 / (10 * PDBL_K),
+                  "bound_us_per_double": b["bound_ms"] * 1e3 / PDBL_K, "bound_by": b["bound_by"]}
+    return out
+
+
+def _column_oracle(M, meta, col: int):
+    """The int oracle's sum of column col's live slots, decoded from M."""
+    from halo_accumulation_tpu_torch import fields as F
+    from halo_accumulation_tpu_torch.ops import curve as cv
+    from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
+
+    m = int(meta[0, col])
+    off, end = m & 7, min((m & 7) + (m >> 3), M.shape[1])
+    acc = None
+    for p in cv.to_host(cv.PointVec(*ck.slot_points(M[:, off:end, col], M.shape[0]))):
+        acc = F.p_add(acc, p)
+    return acc
+
+
+def _bucket_sweep(M, meta, sm_mhz, rng):
+    """bucket_masked on one input: the kernel at its split (bucket_split)
+    equal to the twin at that split on every column, and at every split on
+    the first TWIN_MAX_LANES / T columns (the twin's widest run that fits
+    the card); eight columns against the int oracle; median times at every
+    split; the bound of this input's live slots (each read once, one mixed
+    add each for 18 lanes, a full add for 54).  -> (got, want, info)."""
+    from halo_accumulation_tpu_torch.ops import curve as cv
+    from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
+    from halo_accumulation_tpu_torch.ops.field import L
+
+    lanes, padp, cols = M.shape
+    T = ck.bucket_split(padp, cols)
+    got = ck.bucket_masked(M, meta)
+    want = ck.bucket_masked_plain(M, meta, T)
+    _same(f"bucket_masked {lanes}x{padp}x{cols} T={T}", got, want)
+    ms_by_split = {}
+    for t in SPLITS:
+        c = min(cols, TWIN_MAX_LANES // t)
+        _same(f"bucket_masked {lanes}x{padp}x{cols} T={t}, first {c} columns",
+              [g[:, :c] for g in ck.bucket_masked(M, meta, t)], ck.bucket_masked_plain(M[:, :, :c], meta[:, :c], t))
+        ms_by_split[t] = cuda_time(lambda t=t: ck.bucket_masked(M, meta, t), 10)
+    for col in rng.choice(cols, 8, replace=False):
+        if cv.to_host(cv.PointVec(*(c[:, col : col + 1] for c in got)))[0] != _column_oracle(M, meta, int(col)):
+            raise AssertionError(f"bucket_masked {lanes}x{padp}x{cols} disagrees with the int oracle")
+    mn = meta[0].cpu().numpy()
+    live = np.clip(np.minimum(mn >> 3, padp - (mn & 7)), 0, None)
+    adds = int(live.sum())
+    point_bytes, muls = (2 * FQ_BYTES, MIN_MULS_MADD) if lanes == L else (3 * FQ_BYTES, MIN_MULS_PADD)
+    info = {"shape": [lanes, padp, cols], "split": T, "mean_len": float(live.mean()), "max_len": int(live.max()),
+            "ms": cuda_time(lambda: ck.bucket_masked(M, meta), 10),
+            "plain_ms": cuda_time(lambda: ck.bucket_masked_plain(M, meta, T), 1),
+            "ms_by_split": ms_by_split,
+            **bound(adds * point_bytes + cols * 4 + 3 * FQ_BYTES * cols, muls * adds, IMPL_MULS_PADD * adds,
+                    sm_mhz)}
+    return got, want, info
+
+
+def _decider_fill(pp, rng, K: int):
+    """The masked bucket kernel's input (M, meta) for the widest window group
+    of K stacked n = 16384 decider MSMs over the URS with random scalars,
+    built as msm.msm_many_flagged builds it (window-major digit rows)."""
+    from halo_accumulation_tpu_torch.ops import msm as msm_mod
+    from halo_accumulation_tpu_torch.ops.field import L
+
+    lim = rng.integers(0, 1 << 15, (L, K, N), dtype=np.int64)
+    lim[16] &= (1 << 14) - 1  # scalars below 2^254 < r
+    lim[17] = 0
+    c = msm_mod.window_size(N)
+    digits = msm_mod._digits(torch.from_numpy(lim).to(pp.gs_x.device), c)
+    W = digits.shape[0]
+    rep = lambda xs: [x for x in xs for _ in range(K)]  # noqa: E731
+    groups = msm_mod._expand_groups_sorted(rep(msm_mod.pinned_pads(N, c)), rep(msm_mod._beffs(c)))
+    w0, w1, beff, pad = max(groups, key=lambda g: g[1] - g[0])
+    M, meta, ok = msm_mod._sorted_payload(pp.gs_planes(N), digits.reshape(W * K, N)[w0:w1], pad, beff)
+    if not bool(ok):
+        raise AssertionError("the decider fill overflowed its pinned pad")
+    return M, meta
+
+
 def phase_kernels(dev, pp, sm_mhz):
     """Every kernel against its twin at the main path's shapes."""
     from halo_accumulation_tpu_torch import fields as F
@@ -287,65 +417,57 @@ def phase_kernels(dev, pp, sm_mhz):
     ]:
         raise AssertionError("padd disagrees with the int oracle")
     got = ck.pdbl(tuple(P))
-    want = ck.pdbl_plain(tuple(P))
-    record("pdbl", got, want, cuda_time(lambda: ck.pdbl(tuple(P)), 20),
-           cuda_time(lambda: ck.pdbl_plain(tuple(P)), 5),
-           bound(6 * FQ_BYTES * LANES, MIN_MULS_PDBL * LANES, IMPL_MULS_PDBL * LANES, sm_mhz))
+    _same("pdbl", got, ck.pdbl_plain(tuple(P)))
     if cv.to_host(cv.PointVec(*(c[:, sample] for c in got))) != [
         F.p_add(host_p[i], host_p[i]) for i in sample
     ]:
         raise AssertionError("pdbl disagrees with the int oracle")
+    # the pdbl row: the shape of decide_many's Horner combine
+    n = PDBL_PATH_LANES
+    Pn = tuple(c[:, :n].contiguous() for c in P)
+    record("pdbl", ck.pdbl(Pn, PDBL_K), ck.pdbl_plain(Pn, PDBL_K), cuda_time(lambda: ck.pdbl(Pn, PDBL_K), 20),
+           cuda_time(lambda: ck.pdbl_plain(Pn, PDBL_K), 5),
+           bound(6 * FQ_BYTES * n, MIN_MULS_PDBL * PDBL_K * n, IMPL_MULS_PDBL * PDBL_K * n, sm_mhz),
+           lanes=n, k=PDBL_K, by_width=_pdbl_widths(tuple(P), host_p, sm_mhz))
 
     # bucket_masked at the n = 16384 decider's main group: lanes 18 (packed
-    # affine), pad' 136, 31 windows x 256 buckets; every slot holds a point,
-    # so slots outside [off, off + len) are foreign and must be ignored
+    # affine), pad' 136, 31 windows x 256 buckets, uniform fill; every slot
+    # holds a point, so slots outside [off, off + len) are foreign and must
+    # be ignored
     pts = [p for p in base if p is not None]
     xs = FQ.from_ints([p[0] for p in pts], dev)
     ys = FQ.from_ints([p[1] for p in pts], dev)
     planes = msm_mod.planes_from_affine(xs, ys)  # (18, 64)
     padp, cols = BUCKET_SHAPE
-    src = torch.from_numpy(rng.integers(0, len(pts), (padp, cols))).to(dev)
-    M = planes[:, src]  # (18, padp, cols)
+    M = planes[:, torch.from_numpy(rng.integers(0, len(pts), (padp, cols))).to(dev)]  # (18, padp, cols)
     off = rng.integers(0, 8, cols)
     ln = rng.integers(0, padp - 7, cols)  # len <= pad = padp - 8
     ln[rng.random(cols) < 0.05] = 0  # dead columns
     meta = torch.from_numpy((off | (ln << 3)).reshape(1, cols)).to(dev)
-    got = ck.bucket_masked(M, meta)
-    want = ck.bucket_masked_plain(M, meta)
-    # the function reads each live slot's affine point once (foreign slots
-    # need no read) and one 4-byte (off, len) word per column, and writes a
-    # projective point per column; each live slot is one mixed add
-    adds = int(np.minimum(ln, padp - off).sum())
-    record("bucket_masked", got, want, cuda_time(lambda: ck.bucket_masked(M, meta), 10),
-           cuda_time(lambda: ck.bucket_masked_plain(M, meta), 2),
-           bound(adds * 2 * FQ_BYTES + cols * 4 + 3 * FQ_BYTES * cols, MIN_MULS_MADD * adds,
-                 IMPL_MULS_PADD * adds, sm_mhz),
-           shape=[L, padp, cols])
-    srcn = src.cpu().numpy()
-    for col in rng.choice(cols, 8, replace=False):
-        acc = None
-        for p in range(off[col], off[col] + ln[col]):
-            acc = F.p_add(acc, pts[srcn[p, col]])
-        if cv.to_host(cv.PointVec(*(c[:, col : col + 1] for c in got)))[0] != acc:
-            raise AssertionError("bucket_masked disagrees with the int oracle")
-    # lanes 54 (projective, lazy limbs) at a small shape
-    padp2, cols2 = 16, 256
+    got, want, info = _bucket_sweep(M, meta, sm_mhz, rng)
+    by_fill = {"uniform": dict(info)}
+    record("bucket_masked", got, want, info.pop("ms"), info.pop("plain_ms"),
+           {k: info.pop(k) for k in ("bound_ms", "bound_by", "bytes", "muls32", "impl_muls32")}, **info,
+           by_fill=by_fill)
+    del M
+    # the deciders' real fills: digits of random scalars over the URS through
+    # the sort-payload MSM's own gather (verify_chain's final decider: one
+    # MSM; decide_many: K = 10 stacked)
+    for name, K in (("verify_chain_decider", 1), ("decide_many_decider", 10)):
+        Mr, metar = _decider_fill(pp, rng, K)
+        by_fill[name] = _bucket_sweep(Mr, metar, sm_mhz, rng)[2]
+        del Mr
+    # lanes 54 (projective, lazy limbs) at the prover's dual-route round
+    # shape (n = 8192 per route: pad' 104, 2 x 31 windows x 256 buckets)
+    padp2, cols2 = PROVER_ROUND_SHAPE
     src2 = torch.from_numpy(rng.integers(0, LANES, (padp2, cols2))).to(dev)
     M2 = torch.cat([c[:, src2] for c in P])  # (54, padp2, cols2)
     off2 = rng.integers(0, 8, cols2)
     ln2 = rng.integers(0, padp2 - 7, cols2)
+    ln2[rng.random(cols2) < 0.05] = 0
     meta2 = torch.from_numpy((off2 | (ln2 << 3)).reshape(1, cols2)).to(dev)
-    g2 = ck.bucket_masked(M2, meta2)
-    w2 = ck.bucket_masked_plain(M2, meta2)
-    if not all(torch.equal(g, w) for g, w in zip(g2, w2)):
-        raise AssertionError("bucket_masked (54 lanes) != plain twin")
-    src2n = src2.cpu().numpy()
-    for col in rng.choice(cols2, 4, replace=False):
-        acc = None
-        for p in range(off2[col], off2[col] + ln2[col]):
-            acc = F.p_add(acc, host_p[src2n[p, col]])
-        if cv.to_host(cv.PointVec(*(c[:, col : col + 1] for c in g2)))[0] != acc:
-            raise AssertionError("bucket_masked (54 lanes) disagrees with the int oracle")
+    by_fill["prover_round_54"] = _bucket_sweep(M2, meta2, sm_mhz, rng)[2]
+    del M2
 
     # bucket_accum at the n = 16384 rowperm main group: URS rows, affine (40
     # lanes, the commit / decider MSMs) and projective with lazy limbs (64
@@ -555,7 +677,8 @@ def main() -> int:
                         "launches": total, "launches_by_path": {p: n[name] for p, n in launches.items()},
                         **{key: res[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                            "bound_by", "library_ms")},
-                        **({"by_lanes": res[name]["by_lanes"]} if "by_lanes" in res[name] else {})})
+                        **{key: res[name][key] for key in ("lanes", "k", "split", "by_fill", "by_width", "by_lanes")
+                           if key in res[name]}})
     emit({"phase": "done", "total_s": round(time.perf_counter() - t0, 3)})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

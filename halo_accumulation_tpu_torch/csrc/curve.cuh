@@ -1,9 +1,10 @@
 // Complete projective Pallas-curve formulas on register limbs (a = 0, b = 5).
 //
-// Line-for-line the list-form formulas of halo_accumulation_tpu/ops/limbs.py
-// (padd_list: RCB16 algorithm 7 with b3 = 15; pdbl_list: algorithm 9), which
-// the torch twins in ops/cuda_kernels.py compute with the same field
-// operations on the same operands, so kernel and twin agree limb for limb.
+// Line-for-line the list-form formula of halo_accumulation_tpu/ops/limbs.py
+// (padd_list: RCB16 algorithm 7 with b3 = 15; pdbl.cu splits pdbl_list,
+// algorithm 9, across four threads), which the torch twins in
+// ops/cuda_kernels.py compute with the same field operations on the same
+// operands, so kernel and twin agree limb for limb.
 // Complete formulas have no branches: P == Q, P == -Q and the identity
 // (0 : 1 : 0) take the same path.
 #pragma once
@@ -42,23 +43,6 @@ __device__ __forceinline__ Pt padd(const Pt& P, const Pt& Q) {
   R.x = sub(mul(t3, t1b), mul(t4, wb));
   R.y = add(mul(t1b, z3s), mul(wb, t0b));
   R.z = add(mul(z3s, t4), mul(t0b, t3));
-  return R;
-}
-
-__device__ __forceinline__ Pt pdbl(const Pt& P) {
-  const Fe t0 = mul(P.y, P.y);
-  const Fe t1 = mul(P.y, P.z);
-  const Fe t2 = mul_small(mul(P.z, P.z), 15u);
-  const Fe z38 = mul_small(t0, 8u);
-  const Fe y3s = add(t0, t2);
-  const Fe t0a = sub(t0, mul_small(t2, 3u));
-  const Fe x3a = mul(t2, z38);
-  const Fe xy = mul(P.x, P.y);
-  Pt R;
-  R.z = mul(t1, z38);
-  R.y = add(x3a, mul(t0a, y3s));
-  const Fe x3b = mul(t0a, xy);
-  R.x = add(x3b, x3b);
   return R;
 }
 

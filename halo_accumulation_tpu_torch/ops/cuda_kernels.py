@@ -5,8 +5,9 @@ every Pallas kernel of `halo_accumulation_tpu/ops/pallas_kernels.py`:
 
   fmul           <- _fmul_kernel           Fq multiply (the others' inner loop)
   padd           <- _padd_kernel           complete projective add
-  pdbl           <- _pdbl_kernel           complete projective double
+  pdbl           <- _pdbl_kernel           k complete projective doubles per launch
   bucket_masked  <- _bucket_kernel_masked  masked bucket reduction, sort-payload MSM
+                                           (a column split across T threads)
   bucket_accum   <- _bucket_kernel_aff /   pad-axis bucket sums, row-permutation MSM
                     _bucket_kernel_proj
 
@@ -22,6 +23,7 @@ width 0 has nothing to compute and launches nothing.
 from __future__ import annotations
 
 import ctypes
+import re
 from collections.abc import Callable
 from dataclasses import dataclass
 
@@ -35,6 +37,10 @@ B3 = 15  # 3 * b for y^2 = x^3 + 5
 # rows_from_points): affine x || y || Z-indicator || pad, projective
 # x || y || z || pad.
 AFFINE_LANES, PROJ_LANES = 40, 64
+# The masked bucket reduction's split (bucket_split): threads to aim for, about
+# one resident wave of the H100 at 255 registers a thread (132 SMs x 256 =
+# 33,792); the most threads per column; the fewest pad slots per chunk.
+BUCKET_FILL_THREADS, BUCKET_MAX_SPLIT, BUCKET_MIN_CHUNK = 1 << 15, 16, 8
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
 
@@ -48,6 +54,7 @@ class Kernel:
     argtypes: list
     launches: int = 0
     fn: Callable | None = None
+    lib: ctypes.CDLL | None = None
 
     @property
     def source(self) -> str:
@@ -59,25 +66,66 @@ KERNELS = {
     for k in (
         Kernel("fmul", "halo_accumulation_tpu/ops/pallas_kernels.py:65", [_VP] * 3 + [_I64, _VP]),
         Kernel("padd", "halo_accumulation_tpu/ops/pallas_kernels.py:69", [_VP] * 9 + [_I64, _VP]),
-        Kernel("pdbl", "halo_accumulation_tpu/ops/pallas_kernels.py:346", [_VP] * 6 + [_I64, _VP]),
+        Kernel("pdbl", "halo_accumulation_tpu/ops/pallas_kernels.py:346", [_VP] * 6 + [_I64, _I32, _VP]),
         Kernel("bucket_masked", "halo_accumulation_tpu/ops/pallas_kernels.py:262",
-               [_VP] * 5 + [_I32, _I64, _I64, _VP]),
+               [_VP] * 5 + [_I32, _I64, _I64, _I32, _VP]),
         Kernel("bucket_accum", "halo_accumulation_tpu/ops/pallas_kernels.py:170",
                [_VP] * 5 + [_I32, _I64, _I64, _VP]),
     )
 }
 
 
-def load(verbose: bool = False) -> None:
+def load() -> None:
     """Build every kernel that is not built yet and bind its C entry point."""
-    paths = runtime.build_kernels(list(KERNELS), verbose=verbose)
+    paths = runtime.build_kernels(list(KERNELS))
     for name, path in paths.items():
         k = KERNELS[name]
         if k.fn is None:
-            fn = getattr(ctypes.CDLL(str(path)), f"halo_{name}")
+            k.lib = ctypes.CDLL(str(path))
+            fn = getattr(k.lib, f"halo_{name}")
             fn.argtypes = k.argtypes
             fn.restype = ctypes.c_int
             k.fn = fn
+
+
+def ptxas_report() -> dict[str, dict]:
+    """Per kernel source, parse_ptxas of its build log."""
+    return {name: parse_ptxas(runtime.build_log(name)) for name in KERNELS}
+
+
+def parse_ptxas(log: str) -> dict[str, dict]:
+    """ptxas -v output -> {function: {"registers" (entry functions),
+    "stack", "spill_stores", "spill_loads"}}.  ptxas compiles a called
+    device function once per entry that calls it, so a callee is keyed
+    "<entry>/<callee>", e.g. "pdbl_kernel/halo::mul"."""
+    funcs: dict[str, dict] = {}
+    entry = cur = None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            entry = cur = _symbol(m.group(1))
+        elif m := re.search(r"Function properties for (\S+)", line):
+            name = _symbol(m.group(1))
+            cur = name if entry in (None, name) else f"{entry}/{name}"
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            funcs.setdefault(cur, {}).update(zip(("stack", "spill_stores", "spill_loads"), map(int, m.groups())))
+        elif m := re.search(r"Used (\d+) registers", line):
+            funcs.setdefault(entry, {})["registers"] = int(m.group(1))
+    return funcs
+
+
+def _symbol(mangled: str) -> str:
+    """A short readable name for an Itanium-mangled symbol: its (nested)
+    identifiers, e.g. halo::mul or bucket_masked_kernel."""
+    nested = mangled.startswith("_ZN")
+    s = mangled[3:] if nested else mangled[2:] if mangled.startswith("_Z") else ""
+    parts = []
+    while m := re.match(r"\d+", s):
+        n = int(m.group())
+        parts.append(s[m.end() : m.end() + n])
+        s = s[m.end() + n :]
+        if not nested:
+            break
+    return "::".join(p for p in parts if not p.startswith("_GLOBAL__N")) or mangled
 
 
 def reset_launches() -> None:
@@ -122,18 +170,21 @@ def padd_plain(P, Q):
     return f.sub(t2c, x3a), r1, r2
 
 
-def pdbl_plain(P):
-    """RCB16 algorithm 9 (a = 0), multiplies grouped into three calls."""
+def pdbl_plain(P, k: int = 1):
+    """k doublings, each RCB16 algorithm 9 (a = 0) with its multiplies
+    grouped into three calls."""
     f = FQ
     x, y, z = P
-    t0, t1, zz = f.mul(_stk(y, y, z), _stk(y, z, z)).unbind(1)
-    t2 = f.mul_small(zz, B3)
-    z38 = f.mul_small(t0, 8)
-    y3s = f.add(t0, t2)
-    t0a = f.sub(t0, f.mul_small(t2, 3))
-    x3a, z3, xy = f.mul(_stk(t2, t1, x), _stk(z38, z38, y)).unbind(1)
-    y3b, x3b = f.mul(_stk(t0a, t0a), _stk(y3s, xy)).unbind(1)
-    return f.add(x3b, x3b), f.add(x3a, y3b), z3
+    for _ in range(k):
+        t0, t1, zz = f.mul(_stk(y, y, z), _stk(y, z, z)).unbind(1)
+        t2 = f.mul_small(zz, B3)
+        z38 = f.mul_small(t0, 8)
+        y3s = f.add(t0, t2)
+        t0a = f.sub(t0, f.mul_small(t2, 3))
+        x3a, z3, xy = f.mul(_stk(t2, t1, x), _stk(z38, z38, y)).unbind(1)
+        y3b, x3b = f.mul(_stk(t0a, t0a), _stk(y3s, xy)).unbind(1)
+        x, y, z = f.add(x3b, x3b), f.add(x3a, y3b), z3
+    return x, y, z
 
 
 def unpack_affine_planes(packed):
@@ -144,7 +195,6 @@ def unpack_affine_planes(packed):
     return flat[:L], flat[L:]
 
 
-
 def _identity_cols(n: int, device):
     x = torch.zeros((L, n), dtype=I64, device=device)
     y = x.clone()
@@ -152,32 +202,68 @@ def _identity_cols(n: int, device):
     return x, y, x.clone()
 
 
-def bucket_masked_plain(M, meta):
-    """Per column, the complete-add sum of the live slots off <= p < off+len
-    of M (lanes, padp, cols), from the identity, in increasing p.  lanes 18:
-    pair-packed affine x || y with Z = 1; lanes 54: projective x || y || z.
-    Dead slots are skipped, as the kernel skips them."""
+def bucket_split(padp: int, cols: int) -> int:
+    """Threads per column T of the masked bucket reduction, from the shapes
+    alone (never from the device, so that kernel and twin follow the same
+    chunks): the smallest power of two with cols * T >= BUCKET_FILL_THREADS,
+    but at least 2, at most BUCKET_MAX_SPLIT, and doubled only while a chunk
+    of the pad, padp / T slots, still spans at least BUCKET_MIN_CHUNK.  Two
+    halves pay even on a full card: a warp waits for the longest chunk of
+    its columns, and the last wave is fuller (PERF.md)."""
+    T = 1
+    while (T < BUCKET_MAX_SPLIT and padp >= 2 * T * BUCKET_MIN_CHUNK
+           and (T == 1 or cols * T < BUCKET_FILL_THREADS)):
+        T *= 2
+    return T
+
+
+def slot_points(sl, lanes: int):
+    """Gathered slots (lanes, n) -> (x, y, z) limb tensors: lanes 18 are
+    pair-packed affine x || y with Z = 1, lanes 54 projective x || y || z."""
+    if lanes != L:
+        return sl[:L], sl[L : 2 * L], sl[2 * L :]
+    sx, sy = unpack_affine_planes(sl)
+    sz = torch.zeros_like(sx)
+    sz[0] = 1
+    return sx, sy, sz
+
+
+def bucket_masked_plain(M, meta, T: int):
+    """Per column, the complete-add sum of the live slots off <= p < end =
+    min(off + len, padp) of M (lanes, padp, cols), split as the kernel
+    splits it.  With q = ceil((end - off) / T), chunk j = [off + j q,
+    min(off + (j + 1) q, end)) is summed from the identity in increasing p
+    (dead slots are skipped); then the T partials meet in a binary tree: at
+    level s, partial j += partial j + 2^s for j a multiple of 2^(s+1), where
+    chunk j + 2^s is not empty.  A dead column stays exactly (0 : 1 : 0);
+    T = 1 is one ordered sum per column."""
     lanes, padp, cols = M.shape
+    dev = M.device
+    acc = list(_identity_cols(T * cols, dev))
+    if cols == 0:
+        return tuple(acc)
     off = meta[0] & 7
     end = torch.clamp(off + (meta[0] >> 3), max=padp)
-    ax, ay, az = _identity_cols(cols, M.device)
-    if cols == 0:
-        return ax, ay, az
-    lo, hi = int(off.min()), int(end.max())
-    for p in range(lo, hi):
-        idx = ((off <= p) & (end > p)).nonzero().squeeze(1)
-        if idx.numel() == 0:
-            continue
-        sl = M[:, p, idx]
-        if lanes == L:
-            sx, sy = unpack_affine_planes(sl)
-            sz = torch.zeros_like(sx)
-            sz[0] = 1
-        else:
-            sx, sy, sz = sl[:L], sl[L : 2 * L], sl[2 * L :]
-        nx, ny, nz = padd_plain((ax[:, idx], ay[:, idx], az[:, idx]), (sx, sy, sz))
-        ax[:, idx], ay[:, idx], az[:, idx] = nx, ny, nz
-    return ax, ay, az
+    q = (torch.clamp(end - off, min=0) + T - 1) // T
+    start = off + torch.arange(T, device=dev)[:, None] * q  # (T, cols): chunk j of column c
+    clen = torch.clamp(torch.minimum(start + q, end) - start, min=0).reshape(-1)
+    first = start.reshape(-1)
+    col = torch.arange(T * cols, device=dev) % cols
+    for i in range(int(clen.max())):
+        v = (clen > i).nonzero().squeeze(1)
+        S = slot_points(M[:, first[v] + i, col[v]], lanes)
+        for a, s in zip(acc, padd_plain(tuple(a[:, v] for a in acc), S)):
+            a[:, v] = s
+    tree = [a.reshape(L, T, cols) for a in acc]
+    h = 1
+    while h < T:
+        left = torch.arange(0, T, 2 * h, device=dev)
+        jj, cc = (start[left + h] < end).nonzero(as_tuple=True)
+        jl, jr = left[jj], left[jj] + h
+        for a, s in zip(tree, padd_plain(tuple(a[:, jl, cc] for a in tree), tuple(a[:, jr, cc] for a in tree))):
+            a[:, jl, cc] = s
+        h *= 2
+    return tuple(a[:, 0].contiguous() for a in tree)
 
 
 def decode_rows(t):
@@ -265,24 +351,32 @@ def padd(P, Q):
     return tuple(outs)
 
 
-def pdbl(P):
-    """Complete double of an (x, y, z) tuple of (18, n) limb tensors."""
+def pdbl(P, k: int = 1):
+    """k complete doubles of an (x, y, z) tuple of (18, n) limb tensors, in
+    one launch."""
+    if k < 1:
+        raise ValueError(f"pdbl takes k >= 1 doublings, got {k}")
     if _on_cpu(*P):
-        return pdbl_plain(P)
+        return pdbl_plain(P, k)
     ins = [t.contiguous() for t in P]
     n = _check_planes(*ins)
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
     if n:
-        _launch("pdbl", *(t.data_ptr() for t in ins + outs), n)
+        _launch("pdbl", *(t.data_ptr() for t in ins + outs), n, k)
     return tuple(outs)
 
 
-def bucket_masked(M, meta):
+def bucket_masked(M, meta, T: int | None = None):
     """Masked bucket reduction: M (18 or 54, padp, cols) int64, meta
-    (1, cols) int64 off | len << 3 -> (x, y, z) each (18, cols)."""
-    if _on_cpu(M, meta):
-        return bucket_masked_plain(M, meta)
+    (1, cols) int64 off | len << 3 -> (x, y, z) each (18, cols).  T: threads
+    per column (default bucket_split(padp, cols)), for the kernel and the
+    twin alike."""
     lanes, padp, cols = M.shape
+    T = bucket_split(padp, cols) if T is None else T
+    if T not in (1, 2, 4, 8, 16):
+        raise ValueError(f"bucket_masked splits a column 1, 2, 4, 8 or 16 ways, got {T}")
+    if _on_cpu(M, meta):
+        return bucket_masked_plain(M, meta, T)
     if lanes not in (L, 3 * L):
         raise ValueError(f"bucket_masked takes 18 or 54 lanes, got {lanes}")
     if M.dtype != I64 or meta.dtype != I64:
@@ -293,7 +387,7 @@ def bucket_masked(M, meta):
     outs = [torch.empty((L, cols), dtype=I64, device=M.device) for _ in range(3)]
     if cols:
         _launch("bucket_masked", M.data_ptr(), meta.data_ptr(), *(o.data_ptr() for o in outs),
-                lanes, padp, cols)
+                lanes, padp, cols, T)
     return tuple(outs)
 
 

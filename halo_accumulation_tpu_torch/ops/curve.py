@@ -7,8 +7,9 @@ complete Renes-Costello-Batina 2016 formulas (a = 0, b = 5), which handle
 P == Q, P == -Q and the identity without branches.
 
 `padd` and `pdbl` flatten the batch and call the kernel wrappers of
-ops/cuda_kernels.py: on a CUDA tensor every add and double is one kernel
-launch, at any width; on the CPU the wrappers run the plain twins.
+ops/cuda_kernels.py: on a CUDA tensor every add, and every run of k
+doublings, is one kernel launch, at any width; on the CPU the wrappers run
+the plain twins.
 """
 
 from __future__ import annotations
@@ -61,10 +62,11 @@ def padd(P: PointVec, Q: PointVec) -> PointVec:
     return PointVec(*(o.reshape((L,) + shape) for o in out))
 
 
-def pdbl(P: PointVec) -> PointVec:
-    """Complete projective doubling, RCB16 algorithm 9 (6M + 2S)."""
+def pdbl(P: PointVec, k: int = 1) -> PointVec:
+    """k complete projective doublings (2^k P), RCB16 algorithm 9 (6M + 2S)
+    each, in one kernel launch on the card."""
     shape = P.batch_shape
-    out = ck.pdbl(_flat(P, shape))
+    out = ck.pdbl(_flat(P, shape), k)
     return PointVec(*(o.reshape((L,) + shape) for o in out))
 
 

@@ -219,10 +219,11 @@ def _strided_sum(T: cv.PointVec, K: int) -> cv.PointVec:
     return _first(_shift_adds(T, K.bit_length() - 1))
 
 
-def _sorted_group(planes, digits_g, pad: int, beff: int, nroute: int = 1):
-    """One window group's weighted sums from a payload sort:
-    (PointVec (18, Wg, nroute), ok flag).  digits_g: (Wg, N) in
-    [0, nroute * beff); N a multiple of 8."""
+def _sorted_payload(planes, digits_g, pad: int, beff: int, nroute: int = 1):
+    """One window group's bucket slots from a payload sort: (M (P, padp,
+    Wg * nroute * beff), meta (1, cols) off | len << 3, ok flag), the masked
+    bucket kernel's input.  digits_g: (Wg, N) in [0, nroute * beff); N a
+    multiple of 8."""
     Wg, N = digits_g.shape
     P = planes.shape[0]
     dev = planes.device
@@ -248,6 +249,15 @@ def _sorted_group(planes, digits_g, pad: int, beff: int, nroute: int = 1):
     blocks = splanes.reshape(P, nblk, 8)[:, gidx]  # (P, pad8 * Wg * btot, 8)
     M = blocks.reshape(P, pad8, Wg, btot, 8).permute(0, 1, 4, 2, 3).reshape(P, pad8 * 8, Wg * btot)
     meta = (off | (count << 3)).reshape(1, Wg * btot)
+    return M, meta, ok
+
+
+def _sorted_group(planes, digits_g, pad: int, beff: int, nroute: int = 1):
+    """One window group's weighted sums from a payload sort:
+    (PointVec (18, Wg, nroute), ok flag).  digits_g: (Wg, N) in
+    [0, nroute * beff); N a multiple of 8."""
+    Wg = digits_g.shape[0]
+    M, meta, ok = _sorted_payload(planes, digits_g, pad, beff, nroute)
     S = _masked_reduce(M, meta)
     S = cv.PointVec(*(x.reshape(L, Wg * nroute, beff) for x in S))
     V = _suffix_weight(S, beff)
@@ -260,8 +270,7 @@ def _horner_routes(V: cv.PointVec, c: int) -> cv.PointVec:
     W, R = V.x.shape[1], V.x.shape[2]
     acc = cv.identity((R,), V.x.device)
     for w in range(W):
-        for _ in range(c):
-            acc = cv.pdbl(acc)
+        acc = cv.pdbl(acc, c)
         acc = cv.padd(acc, cv.PointVec(V.x[:, w], V.y[:, w], V.z[:, w]))
     return acc
 
@@ -623,7 +632,6 @@ def msm_rows(points: cv.PointVec, scalars) -> cv.PointVec:
     S = cv.sum_points(T, axis=2)  # (18, 64, B)
     acc = cv.PointVec(S.x[:, 0], S.y[:, 0], S.z[:, 0])
     for w in range(1, 64):
-        for _ in range(4):
-            acc = cv.pdbl(acc)
+        acc = cv.pdbl(acc, 4)
         acc = cv.padd(acc, cv.PointVec(S.x[:, w], S.y[:, w], S.z[:, w]))
     return acc

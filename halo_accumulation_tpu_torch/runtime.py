@@ -25,8 +25,10 @@ import torch
 PKG_DIR = pathlib.Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
+# -Xptxas -v: ptxas reports each function's registers and spills into the
+# build log kept beside the library (build_log)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def device(name: str | torch.device | None = None) -> torch.device:
@@ -53,9 +55,10 @@ def _lib_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_kernels(names, verbose: bool = False) -> dict[str, pathlib.Path]:
+def build_kernels(names) -> dict[str, pathlib.Path]:
     """Compile every missing kernel library, one nvcc per source, all
-    started together.  Returns {name: .so path}; raises on a failed build."""
+    started together, keeping each compiler output as its build log.
+    Returns {name: .so path}; raises on a failed build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: _lib_path(n) for n in names}
     todo = [n for n in names if not paths[n].exists()]
@@ -66,8 +69,6 @@ def build_kernels(names, verbose: bool = False) -> dict[str, pathlib.Path]:
     for n in todo:
         tmp = paths[n].with_suffix(f".tmp{os.getpid()}.so")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        if verbose:
-            cmd[1:1] = ["-Xptxas", "-v"]
         procs.append((n, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                stderr=subprocess.STDOUT, text=True)))
     errors = []
@@ -76,9 +77,14 @@ def build_kernels(names, verbose: bool = False) -> dict[str, pathlib.Path]:
         if proc.returncode != 0:
             errors.append(f"nvcc {n}.cu failed ({proc.returncode}):\n{out}")
             continue
-        if verbose and out:
-            print(out, flush=True)
+        paths[n].with_suffix(".log").write_text(out)
         os.replace(tmp, paths[n])
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths
+
+
+def build_log(name: str) -> str:
+    """The compiler output (ptxas's -v report) of kernel `name`'s current
+    build."""
+    return _lib_path(name).with_suffix(".log").read_text()

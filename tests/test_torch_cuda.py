@@ -16,7 +16,7 @@ import torch
 
 from halo_accumulation_tpu_torch import acc as acc_mod, chain, fields as F, pp as pp_mod
 from halo_accumulation_tpu_torch.ops import cuda_kernels as ck, curve as cv, msm as msm_mod
-from halo_accumulation_tpu_torch.ops.field import FQ, L
+from halo_accumulation_tpu_torch.ops.field import FQ, FR, L
 
 pytestmark = pytest.mark.cuda
 
@@ -71,23 +71,60 @@ def test_kernel_matches_twin(cuda, rng, op):
     assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
 
 
+@pytest.mark.parametrize("shape", [(40, 512), (136, 4096)], ids=["pad40", "pad136"])
+@pytest.mark.parametrize("split", [1, None, 16], ids=["one", "chosen", "sixteen"])
 @pytest.mark.parametrize("lanes", [18, 54], ids=["affine18", "proj54"])
-def test_bucket_masked_matches_twin(cuda, rng, lanes):
+def test_bucket_masked_matches_twin(cuda, rng, lanes, split, shape):
+    """At one thread per column, at the split bucket_split chooses (4 and
+    8 threads per column at these shapes) and at the widest split, the
+    kernel equals the twin run with the same split, limb for limb."""
     P, _ = _points(rng, 64)
     if lanes == L:
         x, y, _ = cv.to_affine(cv.PointVec(*P))
         planes = msm_mod.planes_from_affine(x, y)
     else:
         planes = torch.cat(P)
-    padp, cols = 40, 512
-    M = planes[:, torch.from_numpy(rng.integers(0, 64, (padp, cols)))]
+    padp, cols = shape
+    M = planes[:, torch.from_numpy(rng.integers(0, 64, (padp, cols)))].to(cuda)
     off, ln = rng.integers(0, 8, cols), rng.integers(0, padp - 7, cols)
     ln[:16] = 0
-    meta = torch.from_numpy((off | (ln << 3)).reshape(1, cols))
-    got = ck.bucket_masked(M.to(cuda), meta.to(cuda))
+    meta = torch.from_numpy((off | (ln << 3)).reshape(1, cols)).to(cuda)
+    T = ck.bucket_split(padp, cols) if split is None else split
+    before = ck.launch_counts()["bucket_masked"]
+    got = ck.bucket_masked(M, meta, T)
     torch.cuda.synchronize()
-    want = ck.bucket_masked_plain(M, meta)
-    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert ck.launch_counts()["bucket_masked"] == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, ck.bucket_masked_plain(M, meta, T)))
+
+
+@pytest.mark.parametrize("n", [1, 3, 32, 4096])
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_pdbl_k_matches_twin(cuda, rng, k, n):
+    """k doublings in one launch (four threads per lane, a partial last
+    block at 3 lanes) equal k doublings of the twin."""
+    P, _ = _points(rng, n)
+    Pc = tuple(c.to(cuda) for c in P)
+    before = ck.launch_counts()["pdbl"]
+    got = ck.pdbl(Pc, k)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["pdbl"] == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, ck.pdbl_plain(Pc, k)))
+
+
+def test_sortrows_msm_launches_one_pdbl_per_window(cuda, monkeypatch, rng):
+    """A sort-payload MSM at c = 8 runs its Horner combine as one pdbl
+    launch of 8 doublings per window: 32 launches, and the right point."""
+    monkeypatch.setenv("HALO_TPU_MSM_IMPL", "sortrows")
+    n, c = 256, 8
+    pp = pp_mod.get_pp(n, cuda)
+    scalars = [int.from_bytes(rng.bytes(32), "little") % F.R for _ in range(n)]
+    ck.reset_launches()
+    pt, ok = msm_mod.msm_flagged(pp.gs_points(n), FR.from_ints(scalars, cuda), c=c,
+                                 pads=msm_mod.pinned_pads(n, c), planes=pp.gs_planes(n))
+    assert bool(ok)
+    assert ck.launch_counts()["pdbl"] == msm_mod.num_windows(c) == 32
+    G = cv.to_host(pp.gs_points(n))
+    assert cv.to_host(pt) == [F.p_msm(scalars, G)]
 
 
 @pytest.mark.parametrize("lanes", [40, 64])

@@ -5,8 +5,8 @@ the JAX package: fmul/padd/pdbl to the list-form limb math that is the body
 of the Pallas kernels (ops/limbs.py, run here on numpy) and to the stacked
 JAX curve ops, limb for limb; the row-permutation bucket sums to the body
 of _bucket_kernel_aff / _bucket_kernel_proj, limb for limb; the masked
-bucket reduction to per-column sums on the int oracle, with dead and
-foreign slots.  The kernels themselves are held to these twins on a card by
+bucket reduction, at every split of a column across threads, to per-column
+sums on the int oracle, with dead and foreign slots.  The kernels themselves are held to these twins on a card by
 tests/test_torch_cuda.py."""
 
 import numpy as np
@@ -146,6 +146,119 @@ def test_bucket_masked_twin_vs_oracle(rng, lanes):
     # dead columns hold exactly the identity (0 : 1 : 0)
     dead = (meta[0] >> 3) == 0
     assert cv.is_identity(cv.PointVec(*got))[dead].all()
+
+
+def _bucket_masked_one_thread(M, meta):
+    """The first port's twin (one ordered sum per column), kept as the
+    reference order of a split of one: p = off .. end - 1 from the identity,
+    dead slots skipped."""
+    lanes, padp, cols = M.shape
+    off = meta[0] & 7
+    end = torch.clamp(off + (meta[0] >> 3), max=padp)
+    ax, ay, az = cv.identity((cols,))
+    ax, ay, az = ax.clone(), ay.clone(), az.clone()
+    for p in range(int(off.min()), int(end.max())):
+        idx = ((off <= p) & (end > p)).nonzero().squeeze(1)
+        S = ck.slot_points(M[:, p, idx], lanes)
+        ax[:, idx], ay[:, idx], az[:, idx] = ck.padd_plain((ax[:, idx], ay[:, idx], az[:, idx]), S)
+    return ax, ay, az
+
+
+@pytest.mark.parametrize("T", [1, 2, 4, 8])
+@pytest.mark.parametrize("lanes", [18, 54], ids=["affine18", "proj54"])
+def test_bucket_masked_split_vs_oracle(rng, lanes, T):
+    """Any split of a column's live slots across T threads, then the tree
+    combine, sums to the int oracle's point; a dead column is exactly
+    (0 : 1 : 0), limb for limb."""
+    M, meta, want = _bucket_case(rng, lanes)
+    got = ck.bucket_masked_plain(M, meta, T)
+    assert cv.to_host(cv.PointVec(*got)) == want
+    dead = (meta[0] >> 3) == 0
+    assert int(dead.sum()) >= 4
+    for g, i in zip(got, cv.identity((int(dead.sum()),))):
+        assert torch.equal(g[:, dead], i)
+
+
+@pytest.mark.parametrize("lanes", [18, 54], ids=["affine18", "proj54"])
+def test_bucket_masked_split_of_one_is_first_port_order(rng, lanes):
+    """T = 1 adds the slots in the first port's order: the same limbs."""
+    M, meta, _ = _bucket_case(rng, lanes)
+    got = ck.bucket_masked_plain(M, meta, 1)
+    for g, w in zip(got, _bucket_masked_one_thread(M, meta)):
+        assert torch.equal(g, w)
+
+
+def test_bucket_split_from_shapes_only(rng):
+    """The split is a function of (padp, cols) alone: the n = 16384
+    verify_chain decider's main group takes 8 threads per column, the
+    prover's dual round 4, decide_many's ten stacked MSMs 2, a pad too
+    short for two chunks of 8 slots 1; the wrapper passes it to the twin
+    whatever the lanes and the fill."""
+    assert ck.bucket_split(136, 31 * 256) == 8
+    assert ck.bucket_split(104, 2 * 31 * 256) == 4
+    assert ck.bucket_split(136, 10 * 31 * 256) == 2
+    assert ck.bucket_split(24, 40) == 2
+    assert ck.bucket_split(8, 40) == 1
+    assert ck.bucket_split(136, 4096) == 8 and ck.bucket_split(1 << 10, 1) == 16
+    for lanes in (18, 54):
+        M, meta, _ = _bucket_case(rng, lanes)
+        T = ck.bucket_split(*M.shape[1:])
+        for m in (meta, meta & 7, meta | (M.shape[1] << 3)):  # as given, all dead, all full
+            for g, w in zip(ck.bucket_masked(M, m), ck.bucket_masked_plain(M, m, T)):
+                assert torch.equal(g, w)
+
+
+_PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__6d721cef_16_bucket_masked_cu_81efb88e20bucket_masked_kernelEPKlS1_PlS2_S2_illi' for 'sm_90a'
+ptxas info    : Function properties for _ZN49_GLOBAL__N__6d721cef_16_bucket_masked_cu_81efb88e20bucket_masked_kernelEPKlS1_PlS2_S2_illi
+    64 bytes stack frame, 136 bytes spill stores, 260 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 64 bytes cumulative stack size, 27648 bytes smem
+ptxas info    : Function properties for _ZN4halo3mulENS_2FeES0_
+    0 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
+ptxas info    : Compiling entry function '_Z11fmul_kernelPKlS0_Pll' for 'sm_90a'
+ptxas info    : Function properties for _Z11fmul_kernelPKlS0_Pll
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 0 barriers
+ptxas info    : Function properties for _ZN4halo3mulENS_2FeES0_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+"""
+
+
+def test_parse_ptxas_keys_callees_by_entry():
+    """The ptxas report names entries (nested in an anonymous namespace or
+    not) and their callees, and keeps each entry's own copy of a callee
+    apart."""
+    got = ck.parse_ptxas(_PTXAS_LOG)
+    assert got == {
+        "bucket_masked_kernel": {"stack": 64, "spill_stores": 136, "spill_loads": 260, "registers": 255},
+        "bucket_masked_kernel/halo::mul": {"stack": 0, "spill_stores": 12, "spill_loads": 12},
+        "fmul_kernel": {"stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 72},
+        "fmul_kernel/halo::mul": {"stack": 0, "spill_stores": 0, "spill_loads": 0},
+    }
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_pdbl_k_matches_list_form_and_jax(lanes, k):
+    """k doublings in one call equal k applications of the list-form
+    pdbl_list and of the JAX curve's pdbl, limb for limb, and 2^k P on the
+    int oracle."""
+    ps, _, P, _ = lanes
+    got = ck.pdbl_plain(tuple(P), k)
+    want = tuple(map(as_list, P))
+    jwant = jcv.PointVec(*(np.asarray(c, np.uint32) for c in P))
+    jdbl = cached_jit(jcv.pdbl, "torch_parity")
+    for _ in range(k):
+        want = limbs.pdbl_list(LF, want)
+        jwant = jdbl(jwant)
+    for g, w, j in zip(got, want, jwant):
+        assert np.array_equal(g.numpy(), as_np(w))
+        assert np.array_equal(g.numpy(), np.asarray(j).astype(np.int64))
+    assert all(torch.equal(g, c) for g, c in zip(got, cv.pdbl(P, k)))
+    oracle = ps
+    for _ in range(k):
+        oracle = [F.p_add(p, p) for p in oracle]
+    assert cv.to_host(cv.PointVec(*got)) == oracle
 
 
 @pytest.mark.parametrize("lanes", [40, 64], ids=["affine40", "proj64"])
