@@ -8,8 +8,12 @@ Phases, each printing one JSON line:
      then ptxas: each kernel function's registers and spills.
   2. urs: the 16384-generator URS generated on the card, sampled against
      the int oracle.
-  3. kernels: fmul and padd at 65,536 lanes; pdbl with k = 1, 4, 8
-     doublings per launch at 1, 10, 32 and 65,536 lanes, reported at
+  3. kernels: fmul and padd at 65,536 lanes; padd at every layout
+     (threads per lane) held to its twin from 1 to 79,360 lanes, edge
+     lanes first (identity, P == Q, P == -Q), reported also at the Horner
+     combine's 10 lanes and timed at every layout from 1 to 79,360 lanes;
+     pdbl with k = 1, 4, 8 doublings per launch at 1, 10, 32 and 65,536
+     lanes, reported at
      decide_many's Horner combine (10 lanes, k = 8) and timed at k = 8 from
      1 to 65,536 lanes; the masked bucket reduction at the n = 16384
      decider's shape with a uniform fill, at both deciders' real fills
@@ -38,8 +42,9 @@ Phases, each printing one JSON line:
      and under cProfile (tables in build/profile/).
 Every path runs with the launch counts set to 0 just before it and read
 just after it, and must launch the kernels its pipeline runs: bucket_accum
-on the rowperm paths, bucket_masked on the sortrows paths.  The run fails
-if any kernel has no launch over all paths.  The last line is
+on the rowperm paths, bucket_masked on the sortrows paths; the padd_widths
+line gives each path's padd launches by width.  The run fails if any
+kernel has no launch over all paths.  The last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 without CUDA the script exits 1 before printing anything.
 """
@@ -65,10 +70,14 @@ LANES = 65536
 BUCKET_SHAPE = (136, 31 * 256)  # pad', columns of the n = 16384 decider's main group
 ROWPERM_SHAPE = (128, 31 * 256)  # pad, columns of the n = 16384 rowperm main group
 PROVER_ROUND_SHAPE = (104, 2 * 31 * 256)  # pad', columns of the prover's dual-route round at n = 16384
+PADD_CHECKED = (1, 2, 5, 10, 30, 7936, 65536, 79360)  # padd widths held to the twin at every layout
+PADD_TIMED = (1, 2, 10, 30, 1024, 7936, 15872, 32768, 65536, 79360)  # padd widths timed at every layout
+PADD_PATH_LANES = 10  # decide_many's Horner combine: one add per window over its ten stacked deciders
 PDBL_CHECKED = (1, 10, 32, 65536)  # pdbl widths held to the twin at k = 1, 4, 8
 PDBL_TIMED = (1, 10, 32, 1024, 16384, 65536)  # pdbl widths timed at k = PDBL_K
 PDBL_K = 8
 PDBL_PATH_LANES = 10  # decide_many's Horner combine: its ten stacked deciders, PDBL_K = c doublings a window
+QUEUE_CYCLES = 10_000_000  # about 5 ms of SM clock: covers the host's enqueue of ten launches
 SPLITS = (1, 2, 4, 8, 16)  # bucket_masked threads per column, all timed
 TWIN_MAX_LANES = 1 << 18  # widest bucket_masked_plain run (T * cols lanes): its multiplies take 16 GB at 2^20
 N = 16384
@@ -111,14 +120,19 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_time(fn, reps: int) -> float:
-    """Median milliseconds of fn() over reps runs, by CUDA events."""
+def cuda_time(fn, reps: int, queued: bool = False) -> float:
+    """Median milliseconds of fn() over reps runs, by CUDA events.  queued:
+    the card first sleeps QUEUE_CYCLES, so the host enqueues all of fn's
+    launches before the start event fires and the events read the device's
+    time alone, not the wrappers' dispatch between narrow launches."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         a.record()
         fn()
         b.record()
@@ -150,14 +164,16 @@ def msm_impl(name: str):
             os.environ["HALO_TPU_MSM_IMPL"] = old
 
 
-def counted(path: str, must: set, fn, launches: dict) -> float:
+def counted(path: str, must: set, fn, launches: dict, widths: dict) -> float:
     """Wall seconds of one run of fn with the launch counts zeroed just
-    before and read just after; the path must launch every kernel in must."""
+    before and read just after (into launches[path], and padd's launches by
+    width into widths[path]); the path must launch every kernel in must."""
     from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
 
     ck.reset_launches()
     s = wall(fn)
     launches[path] = ck.launch_counts()
+    widths[path] = ck.launch_widths()["padd"]
     missing = sorted(k for k in must if launches[path][k] == 0)
     if missing:
         raise AssertionError(f"{path} launched no {missing} kernel: {launches[path]}")
@@ -231,6 +247,27 @@ def _base_points(rng, k):
     return [F.p_mul(int.from_bytes(rng.bytes(40), "little"), G) for _ in range(k)]
 
 
+def _point_pairs(rng, dev):
+    """LANES pairs (P, Q) of lazy projective points on the card: each lane
+    random, P == Q, P == -Q or Q the identity, P the identity in about one
+    lane of 65.  -> (base points, P, Q, host P, host Q, kind per lane)."""
+    from halo_accumulation_tpu_torch import fields as F
+    from halo_accumulation_tpu_torch.ops import curve as cv
+
+    base = _base_points(rng, 64) + [None]
+    ip = rng.integers(0, len(base), LANES)
+    iq = rng.integers(0, len(base), LANES)
+    kind = rng.integers(0, 4, LANES)  # 0 random, 1 P == Q, 2 P == -Q, 3 Q = identity
+    host_p = [base[i] for i in ip]
+    host_q = [base[j] if k == 0 else (host_p[n] if k == 1 else (F.p_neg(host_p[n]) if k == 2 else None))
+              for n, (j, k) in enumerate(zip(iq, kind))]
+    lam1 = _rand_lam(rng, LANES, dev)
+    lam2 = torch.roll(lam1, 1, dims=1)
+    P = _scaled(cv.from_affine_ints(host_p, dev), lam1)
+    Q = _scaled(cv.from_affine_ints(host_q, dev), lam2)
+    return base, P, Q, host_p, host_q, kind
+
+
 def _scaled(P, lam):
     """The same projective points with every coordinate times lam (lazy,
     non-canonical limbs)."""
@@ -285,6 +322,59 @@ def _pdbl_widths(P, host_p, sm_mhz) -> dict:
         out[n] = {"us_per_double": ms * 1e3 / (10 * PDBL_K),
                   "bound_us_per_double": b["bound_ms"] * 1e3 / PDBL_K, "bound_by": b["bound_by"]}
     return out
+
+
+def _padd_layouts(P, Q, host_p, host_q, kind, sm_mhz) -> dict:
+    """padd at every layout G (threads per lane): held to padd_plain at the
+    PADD_CHECKED widths on lanes ordered edge cases first (P the identity,
+    P == Q, P == -Q, Q the identity), the first eight lanes of each width
+    to the int oracle; the path's shape (PADD_PATH_LANES lanes at the
+    chosen layout, ten launches per timed run); microseconds per launch at
+    every layout and PADD_TIMED width, ten launches per timed run, beside
+    the bound of that width."""
+    from halo_accumulation_tpu_torch import fields as F
+    from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
+    from halo_accumulation_tpu_torch.ops import curve as cv
+
+    n0 = P[0].shape[1]
+    edge = [host_p.index(None)] + [int(np.flatnonzero(kind == k)[0]) for k in (1, 2, 3)]
+    rest = sorted(set(range(n0)) - set(edge))
+    widest = max(PADD_CHECKED + PADD_TIMED)
+    order = ((edge + rest) * (widest // n0 + 1))[:widest]
+    idx = torch.tensor(order, device=P[0].device)
+    Pw, Qw = (tuple(c[:, idx].contiguous() for c in X) for X in (P, Q))
+    oracle = [F.p_add(host_p[i], host_q[i]) for i in order[:8]]
+
+    def cut(n):
+        return (tuple(c[:, :n].contiguous() for c in X) for X in (Pw, Qw))
+
+    for n in PADD_CHECKED:
+        Pn, Qn = cut(n)
+        want = ck.padd_plain(Pn, Qn)
+        for G in ck.PADD_LAYOUTS:
+            _same(f"padd G={G} n={n}", ck.padd(Pn, Qn, G), want)
+        m = min(n, 8)
+        if cv.to_host(cv.PointVec(*(c[:, :m] for c in want))) != oracle[:m]:
+            raise AssertionError(f"padd at {n} lanes disagrees with the int oracle")
+    n = PADD_PATH_LANES
+    Pn, Qn = cut(n)
+    got, want = ck.padd(Pn, Qn), ck.padd_plain(Pn, Qn)
+    _same(f"padd n={n}", got, want)
+    path = {"lanes": n, "layout": ck.padd_split(n), "max_abs_err": max(int((g - w).abs().max()) for g, w in zip(got, want)),
+            "ms": cuda_time(lambda: [ck.padd(Pn, Qn) for _ in range(10)], 5, queued=True) / 10,
+            "plain_ms": cuda_time(lambda: ck.padd_plain(Pn, Qn), 5), "library_ms": None,
+            **bound(9 * FQ_BYTES * n, MIN_MULS_PADD * n, IMPL_MULS_PADD * n, sm_mhz)}
+    by_width = {}
+    for n in PADD_TIMED:
+        Pn, Qn = cut(n)
+        row = {f"us_G{G}": cuda_time(lambda G=G: [ck.padd(Pn, Qn, G) for _ in range(10)], 7, queued=True) * 1e3 / 10
+               for G in ck.PADD_LAYOUTS}
+        # the same ten launches not queued: the wrappers' dispatch shows
+        # where it outlasts the kernel
+        row["us_dispatch_bound"] = cuda_time(lambda: [ck.padd(Pn, Qn) for _ in range(10)], 7) * 1e3 / 10
+        b = bound(9 * FQ_BYTES * n, MIN_MULS_PADD * n, IMPL_MULS_PADD * n, sm_mhz)
+        by_width[n] = {**row, "chosen": ck.padd_split(n), "bound_us": b["bound_ms"] * 1e3, "bound_by": b["bound_by"]}
+    return {"layouts": list(ck.PADD_LAYOUTS), "at_path_shape": path, "by_width": by_width}
 
 
 def _column_oracle(M, meta, col: int):
@@ -395,18 +485,7 @@ def phase_kernels(dev, pp, sm_mhz):
         raise AssertionError("fmul disagrees with the int oracle")
 
     # padd / pdbl: identity lanes, P == Q, P == -Q, lazy projective limbs
-    base = _base_points(rng, 64) + [None]
-    ip = rng.integers(0, len(base), LANES)
-    iq = rng.integers(0, len(base), LANES)
-    kind = rng.integers(0, 4, LANES)  # 0 random, 1 P == Q, 2 P == -Q, 3 Q = identity
-    host_p = [base[i] for i in ip]
-    host_q = [base[j] if k == 0 else (host_p[n] if k == 1 else (F.p_neg(host_p[n]) if k == 2 else None))
-              for n, (j, k) in enumerate(zip(iq, kind))]
-    P = cv.from_affine_ints(host_p, dev)
-    Q = cv.from_affine_ints(host_q, dev)
-    lam1 = _rand_lam(rng, LANES, dev)
-    lam2 = torch.roll(lam1, 1, dims=1)
-    P, Q = _scaled(P, lam1), _scaled(Q, lam2)
+    base, P, Q, host_p, host_q, kind = _point_pairs(rng, dev)
     got = ck.padd(tuple(P), tuple(Q))
     want = ck.padd_plain(tuple(P), tuple(Q))
     record("padd", got, want, cuda_time(lambda: ck.padd(tuple(P), tuple(Q)), 20),
@@ -416,6 +495,7 @@ def phase_kernels(dev, pp, sm_mhz):
         F.p_add(host_p[i], host_q[i]) for i in sample
     ]:
         raise AssertionError("padd disagrees with the int oracle")
+    res["padd"].update(_padd_layouts(tuple(P), tuple(Q), host_p, host_q, kind, sm_mhz))
     got = ck.pdbl(tuple(P))
     _same("pdbl", got, ck.pdbl_plain(tuple(P)))
     if cv.to_host(cv.PointVec(*(c[:, sample] for c in got))) != [
@@ -514,7 +594,7 @@ def _raw_ints(t):
     return limb_array_to_ints(t.cpu().numpy())
 
 
-def phase_prove(pp, smi, launches):
+def phase_prove(pp, smi, launches, widths):
     """build_chain from default_rng(7) under each setting, held to the
     committed chain's first step records byte for byte."""
     from halo_accumulation_tpu_torch import chain
@@ -527,7 +607,7 @@ def phase_prove(pp, smi, launches):
         with msm_impl(impl):
             s = counted(f"prove_{impl}", MUST_LAUNCH[impl],
                         lambda: built.update(c=chain.build_chain(np.random.default_rng(7), N, PROVE_STEPS, pp)),
-                        launches)
+                        launches, widths)
         d, qss, accs = built["c"]
         pos = off
         for step, rec in enumerate(chain.step_records(qss, accs)):
@@ -550,7 +630,7 @@ def _expect_reject(fn, msg: str) -> None:
     raise AssertionError(f"tampered input accepted, expected {msg!r}")
 
 
-def phase_chain(pp, smi, launches):
+def phase_chain(pp, smi, launches, widths):
     from halo_accumulation_tpu_torch import acc as acc_mod
     from halo_accumulation_tpu_torch import chain
     from halo_accumulation_tpu_torch import fields as F
@@ -571,7 +651,7 @@ def phase_chain(pp, smi, launches):
         with msm_impl(impl):
             for path, fn in paths.items():
                 tag = path if impl == "sortrows" else f"{path}_{impl}"
-                first[path] = counted(tag, MUST_LAUNCH[impl] | VERIFY_ALSO, fn, launches)
+                first[path] = counted(tag, MUST_LAUNCH[impl] | VERIFY_ALSO, fn, launches, widths)
             for path, fn in paths.items():
                 warm[impl][path] = float(np.median([wall(fn) for _ in range(3)]))
             _expect_reject(lambda: chain.verify_chain_fast(d, qss, accs[:-1] + [bumped(accs[-1])], pp),
@@ -596,6 +676,8 @@ def phase_profile(paths, warm, smi) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
+
     os.makedirs(PROFILE_DIR, exist_ok=True)
     for path, fn in paths.items():
         torch.cuda.synchronize()
@@ -619,6 +701,9 @@ def phase_profile(paths, warm, smi) -> None:
             it[0] += 1
             it[1] += end - start
         top = sorted(items.items(), key=lambda kv: -kv[1][1])
+        # device ms and launches per port kernel, all its instances together
+        kernel_ms = {k: [sum(c for n, (c, _) in items.items() if f"{k}_" in n),
+                         sum(us for n, (_, us) in items.items() if f"{k}_" in n) / 1e3] for k in ck.KERNELS}
         with open(os.path.join(PROFILE_DIR, f"profile_{path}.txt"), "w") as f:
             f.write(f"{smi}\n{path}: wall {prof_wall:.6f} s, device busy {busy_us / 1e3:.3f} ms, "
                     f"{len(dev)} device events\n\n")
@@ -640,7 +725,7 @@ def phase_profile(paths, warm, smi) -> None:
               "unprofiled_warm_s": warm.get(path), "device_busy_ms": busy_us / 1e3,
               "device_events": len(dev), "idle_share": 1 - busy_s / prof_wall,
               "idle_share_unprofiled": 1 - busy_s / warm[path] if path in warm else None,
-              "top_device_ms": [[n[:80], c, us / 1e3] for n, (c, us) in top[:8]],
+              "top_device_ms": [[n[:80], c, us / 1e3] for n, (c, us) in top[:8]], "kernel_ms": kernel_ms,
               "host_cprofile_s": st.total_tt, "host_replays_s": replay_s,
               "host_top_own_s": [[name, tt] for tt, _, name in own[:8]]})
 
@@ -656,8 +741,9 @@ def main() -> int:
     pp = phase_urs(dev)
     res = phase_kernels(dev, pp, sm_mhz)
     launches: dict[str, dict] = {}
-    phase_prove(pp, smi, launches)
-    paths, warm = phase_chain(pp, smi, launches)
+    widths: dict[str, dict] = {}
+    phase_prove(pp, smi, launches, widths)
+    paths, warm = phase_chain(pp, smi, launches, widths)
     with msm_impl("sortrows"):
         phase_profile(paths, warm, smi)
     from halo_accumulation_tpu_torch import chain
@@ -677,8 +763,10 @@ def main() -> int:
                         "launches": total, "launches_by_path": {p: n[name] for p, n in launches.items()},
                         **{key: res[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                            "bound_by", "library_ms")},
-                        **{key: res[name][key] for key in ("lanes", "k", "split", "by_fill", "by_width", "by_lanes")
-                           if key in res[name]}})
+                        **{key: res[name][key] for key in ("lanes", "k", "split", "layouts", "at_path_shape",
+                                                           "by_fill", "by_width", "by_lanes") if key in res[name]}})
+    emit({"phase": "padd_widths", "note": "padd launches by width (lanes) on each counted path",
+          **widths})
     emit({"phase": "done", "total_s": round(time.perf_counter() - t0, 3)})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

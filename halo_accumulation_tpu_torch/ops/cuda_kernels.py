@@ -4,7 +4,8 @@ Five CUDA kernels (sources in `halo_accumulation_tpu_torch/csrc/`) replace
 every Pallas kernel of `halo_accumulation_tpu/ops/pallas_kernels.py`:
 
   fmul           <- _fmul_kernel           Fq multiply (the others' inner loop)
-  padd           <- _padd_kernel           complete projective add
+  padd           <- _padd_kernel           complete projective add (a lane split across
+                                           G threads, G from padd_split(width))
   pdbl           <- _pdbl_kernel           k complete projective doubles per launch
   bucket_masked  <- _bucket_kernel_masked  masked bucket reduction, sort-payload MSM
                                            (a column split across T threads)
@@ -16,16 +17,18 @@ operation order (the CUDA device functions mirror ops/limbs.py's list form;
 the twins run the same math stacked over a batch axis), so the kernel and
 its twin agree exactly.  A wrapper takes the twin for tensors on the CPU and
 launches the kernel for CUDA tensors; any other device raises.  Each launch
-adds one to its kernel's `launches` count, and only a launch does: a call of
-width 0 has nothing to compute and launches nothing.
+adds one to its kernel's `launches` count and to its count at that width
+(`widths`), and only a launch does: a call of width 0 has nothing to compute
+and launches nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
 import re
+from collections import Counter
 from collections.abc import Callable
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -41,18 +44,25 @@ AFFINE_LANES, PROJ_LANES = 40, 64
 # one resident wave of the H100 at 255 registers a thread (132 SMs x 256 =
 # 33,792); the most threads per column; the fewest pad slots per chunk.
 BUCKET_FILL_THREADS, BUCKET_MAX_SPLIT, BUCKET_MIN_CHUNK = 1 << 15, 16, 8
+# padd's layouts (threads per lane: one, or six sharing an add) and the
+# widest launch that takes the split one (padd_split)
+PADD_SPLIT, PADD_SPLIT_MAX_LANES = 6, 1 << 15
+PADD_LAYOUTS = (1, PADD_SPLIT)
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
 
 @dataclass
 class Kernel:
     """One CUDA kernel: `csrc/<name>.cu` exports `halo_<name>(*argtypes)`,
-    which returns cudaGetLastError()."""
+    which returns cudaGetLastError().  launches counts the launches since
+    reset_launches(), widths the same launches by width (lanes, or columns
+    of the bucket kernels)."""
 
     name: str
     replaces: str
     argtypes: list
     launches: int = 0
+    widths: Counter = field(default_factory=Counter)
     fn: Callable | None = None
     lib: ctypes.CDLL | None = None
 
@@ -65,7 +75,7 @@ KERNELS = {
     k.name: k
     for k in (
         Kernel("fmul", "halo_accumulation_tpu/ops/pallas_kernels.py:65", [_VP] * 3 + [_I64, _VP]),
-        Kernel("padd", "halo_accumulation_tpu/ops/pallas_kernels.py:69", [_VP] * 9 + [_I64, _VP]),
+        Kernel("padd", "halo_accumulation_tpu/ops/pallas_kernels.py:69", [_VP] * 9 + [_I64, _I32, _VP]),
         Kernel("pdbl", "halo_accumulation_tpu/ops/pallas_kernels.py:346", [_VP] * 6 + [_I64, _I32, _VP]),
         Kernel("bucket_masked", "halo_accumulation_tpu/ops/pallas_kernels.py:262",
                [_VP] * 5 + [_I32, _I64, _I64, _I32, _VP]),
@@ -131,10 +141,16 @@ def _symbol(mangled: str) -> str:
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.widths.clear()
 
 
 def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def launch_widths() -> dict[str, dict[int, int]]:
+    """{kernel: {width: launches}} since reset_launches(), widths ascending."""
+    return {name: dict(sorted(k.widths.items())) for name, k in KERNELS.items()}
 
 
 # -- plain twins ----------------------------------------------------------------
@@ -200,6 +216,17 @@ def _identity_cols(n: int, device):
     y = x.clone()
     y[0] = 1
     return x, y, x.clone()
+
+
+def padd_split(n: int) -> int:
+    """Threads per lane G of the padd kernel, from the width n alone (so
+    the choice never depends on the device; both layouts return the same
+    limbs): PADD_SPLIT threads up to PADD_SPLIT_MAX_LANES lanes, where the
+    add's two levels of six multiplies run side by side (3.7 to 3.9 times
+    faster at 1 to 30 lanes on the H100), and one thread per lane beyond,
+    where the card is full and one thread a lane wastes no issue slots
+    (PERF.md, padd by width)."""
+    return PADD_SPLIT if n <= PADD_SPLIT_MAX_LANES else 1
 
 
 def bucket_split(padp: int, cols: int) -> int:
@@ -308,7 +335,7 @@ def _check_planes(*ts, rows: int = L):
     return n
 
 
-def _launch(name: str, *args) -> None:
+def _launch(name: str, width: int, *args) -> None:
     k = KERNELS[name]
     if k.fn is None:
         load()
@@ -316,6 +343,7 @@ def _launch(name: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
     k.launches += 1
+    k.widths[width] += 1
 
 
 def _on_cpu(*ts) -> bool:
@@ -335,19 +363,24 @@ def fmul(a, b):
     n = _check_planes(a, b)
     out = torch.empty_like(a)
     if n:
-        _launch("fmul", a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
+        _launch("fmul", n, a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
     return out
 
 
-def padd(P, Q):
-    """Complete add of two (x, y, z) tuples of (18, n) limb tensors."""
+def padd(P, Q, G: int | None = None):
+    """Complete add of two (x, y, z) tuples of (18, n) limb tensors.  G:
+    threads per lane of the kernel (default padd_split(n)); every layout
+    gives the twin's limbs, so the twin takes none."""
+    G = padd_split(P[0].shape[-1]) if G is None else G
+    if G not in PADD_LAYOUTS:
+        raise ValueError(f"padd runs {', '.join(map(str, PADD_LAYOUTS))} threads per lane, got {G}")
     if _on_cpu(*P, *Q):
         return padd_plain(P, Q)
     ins = [t.contiguous() for t in (*P, *Q)]
     n = _check_planes(*ins)
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
     if n:
-        _launch("padd", *(t.data_ptr() for t in ins + outs), n)
+        _launch("padd", n, *(t.data_ptr() for t in ins + outs), n, G)
     return tuple(outs)
 
 
@@ -362,7 +395,7 @@ def pdbl(P, k: int = 1):
     n = _check_planes(*ins)
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
     if n:
-        _launch("pdbl", *(t.data_ptr() for t in ins + outs), n, k)
+        _launch("pdbl", n, *(t.data_ptr() for t in ins + outs), n, k)
     return tuple(outs)
 
 
@@ -386,7 +419,7 @@ def bucket_masked(M, meta, T: int | None = None):
     M, meta = M.contiguous(), meta.contiguous()
     outs = [torch.empty((L, cols), dtype=I64, device=M.device) for _ in range(3)]
     if cols:
-        _launch("bucket_masked", M.data_ptr(), meta.data_ptr(), *(o.data_ptr() for o in outs),
+        _launch("bucket_masked", cols, M.data_ptr(), meta.data_ptr(), *(o.data_ptr() for o in outs),
                 lanes, padp, cols, T)
     return tuple(outs)
 
@@ -408,6 +441,6 @@ def bucket_accum(rows, src):
     pad, cols = src.shape
     outs = [torch.empty((L, cols), dtype=I64, device=rows.device) for _ in range(3)]
     if cols:
-        _launch("bucket_accum", rows.data_ptr(), src.data_ptr(), *(o.data_ptr() for o in outs),
+        _launch("bucket_accum", cols, rows.data_ptr(), src.data_ptr(), *(o.data_ptr() for o in outs),
                 rows.shape[1], pad, cols)
     return tuple(outs)

@@ -22,6 +22,7 @@ pytestmark = pytest.mark.cuda
 
 CHAIN = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, ".chain_cache", "chain_512_10.bin")
 LANES = 4096
+PADD_WIDTHS = (1, 2, 5, 10, 30, 7936, 65536, 79360)  # padd widths held to the twin at every layout
 # the kernels each path must launch, by MSM setting
 MUST_LAUNCH = {"sortrows": {"fmul", "padd", "pdbl", "bucket_masked"},
                "rowperm": {"fmul", "padd", "pdbl", "bucket_accum"}}
@@ -41,10 +42,13 @@ def rng():
 
 def _points(rng, n):
     """n lazy projective lanes per side: random sums, the identity, P == Q
-    and P == -Q, every coordinate scaled by a random nonzero lambda."""
+    and P == -Q, every coordinate scaled by a random nonzero lambda.  Lane
+    0 adds a point to the identity, lane 1 the identity to a point, lane 2
+    doubles and lane 3 adds a point to its negation."""
     base = [F.p_mul(int.from_bytes(rng.bytes(40), "little") % F.R, (F.G_X, F.G_Y)) for _ in range(16)]
     base.append(None)
     ip = rng.integers(0, len(base), n)
+    ip[0] = len(base) - 1
     ps = [base[i] for i in ip]
     qs = [(base[rng.integers(0, len(base))], None, p, F.p_neg(p))[i % 4] for i, p in enumerate(ps)]
 
@@ -69,6 +73,31 @@ def test_kernel_matches_twin(cuda, rng, op):
     torch.cuda.synchronize()
     assert ck.launch_counts()[op] == before + 1
     assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.fixture(scope="module")
+def padd_lanes():
+    """The widest padd input on the card, lanes 0 to 3 the edge cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    P, Q = _points(np.random.default_rng(5), max(PADD_WIDTHS))
+    return tuple(c.cuda() for c in P), tuple(c.cuda() for c in Q)
+
+
+@pytest.mark.parametrize("n", PADD_WIDTHS)
+def test_padd_layouts_match_twin(padd_lanes, n):
+    """Every padd layout (threads per lane) equals the twin limb for limb
+    at the paths' widths, the edge lanes first; each launch counts once,
+    at its width; the default layout (padd_split(n)) gives the same."""
+    P, Q = (tuple(c[:, :n] for c in X) for X in padd_lanes)
+    want = ck.padd_plain(P, Q)
+    for G in ck.PADD_LAYOUTS:
+        ck.reset_launches()
+        got = ck.padd(P, Q, G)
+        torch.cuda.synchronize()
+        assert ck.launch_counts()["padd"] == 1 and ck.launch_widths()["padd"] == {n: 1}
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), G
+    assert all(torch.equal(g, w) for g, w in zip(ck.padd(P, Q), want))
 
 
 @pytest.mark.parametrize("shape", [(40, 512), (136, 4096)], ids=["pad40", "pad136"])
@@ -198,3 +227,4 @@ def test_zero_width_launches_nothing(cuda):
     rows = torch.zeros((3, 40), dtype=torch.int64, device=cuda)
     assert all(t.shape == (L, 0) for t in ck.bucket_accum(rows, torch.empty((8, 0), dtype=torch.int64, device=cuda)))
     assert ck.launch_counts() == before
+    assert not any(ck.launch_widths()[k].get(0) for k in ck.KERNELS)
