@@ -8,10 +8,10 @@ Phases, each printing one JSON line:
      then ptxas: each kernel function's registers and spills.
   2. urs: the 16384-generator URS generated on the card, sampled against
      the int oracle.
-  3. kernels: fmul and padd at 65,536 lanes; padd at every layout
-     (threads per lane) held to its twin from 1 to 79,360 lanes, edge
-     lanes first (identity, P == Q, P == -Q), reported also at the Horner
-     combine's 10 lanes and timed at every layout from 1 to 79,360 lanes;
+  3. kernels: fmul and padd at 65,536 lanes (padd timed over ten launches
+     queued); padd held to its twin from 1 to 79,360 lanes, edge lanes
+     first (identity, P == Q, P == -Q), reported also at the Horner
+     combine's 10 lanes and timed from 1 to 79,360 lanes;
      pdbl with k = 1, 4, 8 doublings per launch at 1, 10, 32 and 65,536
      lanes, reported at
      decide_many's Horner combine (10 lanes, k = 8) and timed at k = 8 from
@@ -70,8 +70,8 @@ LANES = 65536
 BUCKET_SHAPE = (136, 31 * 256)  # pad', columns of the n = 16384 decider's main group
 ROWPERM_SHAPE = (128, 31 * 256)  # pad, columns of the n = 16384 rowperm main group
 PROVER_ROUND_SHAPE = (104, 2 * 31 * 256)  # pad', columns of the prover's dual-route round at n = 16384
-PADD_CHECKED = (1, 2, 5, 10, 30, 7936, 65536, 79360)  # padd widths held to the twin at every layout
-PADD_TIMED = (1, 2, 10, 30, 1024, 7936, 15872, 32768, 65536, 79360)  # padd widths timed at every layout
+PADD_CHECKED = (1, 2, 5, 10, 30, 7936, 65536, 79360)  # padd widths held to the twin
+PADD_TIMED = (1, 2, 10, 30, 1024, 7936, 15872, 32768, 65536, 79360)  # padd widths timed
 PADD_PATH_LANES = 10  # decide_many's Horner combine: one add per window over its ten stacked deciders
 PDBL_CHECKED = (1, 10, 32, 65536)  # pdbl widths held to the twin at k = 1, 4, 8
 PDBL_TIMED = (1, 10, 32, 1024, 16384, 65536)  # pdbl widths timed at k = PDBL_K
@@ -324,14 +324,13 @@ def _pdbl_widths(P, host_p, sm_mhz) -> dict:
     return out
 
 
-def _padd_layouts(P, Q, host_p, host_q, kind, sm_mhz) -> dict:
-    """padd at every layout G (threads per lane): held to padd_plain at the
-    PADD_CHECKED widths on lanes ordered edge cases first (P the identity,
-    P == Q, P == -Q, Q the identity), the first eight lanes of each width
-    to the int oracle; the path's shape (PADD_PATH_LANES lanes at the
-    chosen layout, ten launches per timed run); microseconds per launch at
-    every layout and PADD_TIMED width, ten launches per timed run, beside
-    the bound of that width."""
+def _padd_widths(P, Q, host_p, host_q, kind, sm_mhz) -> dict:
+    """padd held to padd_plain at the PADD_CHECKED widths on lanes ordered
+    edge cases first (P the identity, P == Q, P == -Q, Q the identity), the
+    first eight lanes of each width to the int oracle; the path's shape
+    (PADD_PATH_LANES lanes, ten launches per timed run); microseconds per
+    launch at every PADD_TIMED width, ten launches queued per timed run,
+    beside the bound of that width."""
     from halo_accumulation_tpu_torch import fields as F
     from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
     from halo_accumulation_tpu_torch.ops import curve as cv
@@ -351,8 +350,7 @@ def _padd_layouts(P, Q, host_p, host_q, kind, sm_mhz) -> dict:
     for n in PADD_CHECKED:
         Pn, Qn = cut(n)
         want = ck.padd_plain(Pn, Qn)
-        for G in ck.PADD_LAYOUTS:
-            _same(f"padd G={G} n={n}", ck.padd(Pn, Qn, G), want)
+        _same(f"padd n={n}", ck.padd(Pn, Qn), want)
         m = min(n, 8)
         if cv.to_host(cv.PointVec(*(c[:, :m] for c in want))) != oracle[:m]:
             raise AssertionError(f"padd at {n} lanes disagrees with the int oracle")
@@ -360,21 +358,21 @@ def _padd_layouts(P, Q, host_p, host_q, kind, sm_mhz) -> dict:
     Pn, Qn = cut(n)
     got, want = ck.padd(Pn, Qn), ck.padd_plain(Pn, Qn)
     _same(f"padd n={n}", got, want)
-    path = {"lanes": n, "layout": ck.padd_split(n), "max_abs_err": max(int((g - w).abs().max()) for g, w in zip(got, want)),
+    path = {"lanes": n, "max_abs_err": max(int((g - w).abs().max()) for g, w in zip(got, want)),
             "ms": cuda_time(lambda: [ck.padd(Pn, Qn) for _ in range(10)], 5, queued=True) / 10,
             "plain_ms": cuda_time(lambda: ck.padd_plain(Pn, Qn), 5), "library_ms": None,
             **bound(9 * FQ_BYTES * n, MIN_MULS_PADD * n, IMPL_MULS_PADD * n, sm_mhz)}
     by_width = {}
     for n in PADD_TIMED:
         Pn, Qn = cut(n)
-        row = {f"us_G{G}": cuda_time(lambda G=G: [ck.padd(Pn, Qn, G) for _ in range(10)], 7, queued=True) * 1e3 / 10
-               for G in ck.PADD_LAYOUTS}
+        ten = lambda: [ck.padd(Pn, Qn) for _ in range(10)]  # noqa: E731
+        b = bound(9 * FQ_BYTES * n, MIN_MULS_PADD * n, IMPL_MULS_PADD * n, sm_mhz)
         # the same ten launches not queued: the wrappers' dispatch shows
         # where it outlasts the kernel
-        row["us_dispatch_bound"] = cuda_time(lambda: [ck.padd(Pn, Qn) for _ in range(10)], 7) * 1e3 / 10
-        b = bound(9 * FQ_BYTES * n, MIN_MULS_PADD * n, IMPL_MULS_PADD * n, sm_mhz)
-        by_width[n] = {**row, "chosen": ck.padd_split(n), "bound_us": b["bound_ms"] * 1e3, "bound_by": b["bound_by"]}
-    return {"layouts": list(ck.PADD_LAYOUTS), "at_path_shape": path, "by_width": by_width}
+        by_width[n] = {"us": cuda_time(ten, 7, queued=True) * 1e3 / 10,
+                       "us_dispatch_bound": cuda_time(ten, 7) * 1e3 / 10,
+                       "bound_us": b["bound_ms"] * 1e3, "bound_by": b["bound_by"]}
+    return {"at_path_shape": path, "by_width": by_width}
 
 
 def _column_oracle(M, meta, col: int):
@@ -488,14 +486,15 @@ def phase_kernels(dev, pp, sm_mhz):
     base, P, Q, host_p, host_q, kind = _point_pairs(rng, dev)
     got = ck.padd(tuple(P), tuple(Q))
     want = ck.padd_plain(tuple(P), tuple(Q))
-    record("padd", got, want, cuda_time(lambda: ck.padd(tuple(P), tuple(Q)), 20),
+    record("padd", got, want, cuda_time(lambda: [ck.padd(tuple(P), tuple(Q)) for _ in range(10)], 7,
+                                        queued=True) / 10,
            cuda_time(lambda: ck.padd_plain(tuple(P), tuple(Q)), 5),
            bound(9 * FQ_BYTES * LANES, MIN_MULS_PADD * LANES, IMPL_MULS_PADD * LANES, sm_mhz))
     if cv.to_host(cv.PointVec(*(c[:, sample] for c in got))) != [
         F.p_add(host_p[i], host_q[i]) for i in sample
     ]:
         raise AssertionError("padd disagrees with the int oracle")
-    res["padd"].update(_padd_layouts(tuple(P), tuple(Q), host_p, host_q, kind, sm_mhz))
+    res["padd"].update(_padd_widths(tuple(P), tuple(Q), host_p, host_q, kind, sm_mhz))
     got = ck.pdbl(tuple(P))
     _same("pdbl", got, ck.pdbl_plain(tuple(P)))
     if cv.to_host(cv.PointVec(*(c[:, sample] for c in got))) != [
@@ -763,7 +762,7 @@ def main() -> int:
                         "launches": total, "launches_by_path": {p: n[name] for p, n in launches.items()},
                         **{key: res[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                            "bound_by", "library_ms")},
-                        **{key: res[name][key] for key in ("lanes", "k", "split", "layouts", "at_path_shape",
+                        **{key: res[name][key] for key in ("lanes", "k", "split", "at_path_shape",
                                                            "by_fill", "by_width", "by_lanes") if key in res[name]}})
     emit({"phase": "padd_widths", "note": "padd launches by width (lanes) on each counted path",
           **widths})

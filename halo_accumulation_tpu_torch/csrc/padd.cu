@@ -26,15 +26,15 @@
 //   output   threads 0, 1, 2 each form and store one coordinate.
 // Products and middle values meet in shared memory under __syncwarp; a
 // lane's threads never straddle a warp.  The multiply depth of an add falls
-// from 12 to 2.  On the H100 the split add takes 11.5 to 12.2 us a launch
-// at 1 to 30 lanes against 44.9 us at one thread per lane, at 80 registers
+// from 12 to 2.  On the H100 the split add takes 11.1 to 12.5 us a launch
+// at 1 to 30 lanes against 41.7 us at one thread per lane, at 80 registers
 // and no spills; eight threads a lane (four lanes a warp) and the middle
 // run by every thread alike were slower at every width.  One thread per
-// lane (padd_kernel, 255 registers) is kept for launches wider than 32,768
-// lanes, where it fills the card in fewer waves (ops/cuda_kernels.py
-// padd_split chooses from the width alone; PERF.md has the table).  Every
-// product, small multiply, sub and add is the same field operation on the
-// same operands as in the plain twin, so both layouts return its limbs.
+// lane (255 registers, 72 bytes of spills) was faster only from 32,768 to
+// 65,536 lanes, widths no path launches, and slower at decide_many's
+// 79,360, so it was removed (PERF.md, PR 5).  Every product, small
+// multiply, sub and add is the same field operation on the same operands
+// as in the plain twin, so the limbs equal the twin's.
 // Left for later: the limb work noted in fmul.cu.
 #include <cuda_runtime.h>
 #include "curve.cuh"
@@ -42,25 +42,6 @@
 namespace {
 
 using halo::Fe;
-
-// -- one thread per lane --------------------------------------------------------
-
-constexpr int kBlock1 = 64;
-
-__global__ void __launch_bounds__(kBlock1)
-    padd_kernel(const int64_t* __restrict__ x1, const int64_t* __restrict__ y1,
-                const int64_t* __restrict__ z1, const int64_t* __restrict__ x2,
-                const int64_t* __restrict__ y2, const int64_t* __restrict__ z2,
-                int64_t* __restrict__ ox, int64_t* __restrict__ oy, int64_t* __restrict__ oz,
-                int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * kBlock1 + threadIdx.x;
-  if (i >= n) return;
-  const halo::Pt P = halo::load_pt(x1, y1, z1, n, i);
-  const halo::Pt Q = halo::load_pt(x2, y2, z2, n, i);
-  halo::store_pt(ox, oy, oz, n, i, halo::padd(P, Q));
-}
-
-// -- six threads per lane -------------------------------------------------------
 
 constexpr int kGroup = 6;                // threads per lane, one per product of a level
 constexpr int kPerWarp = 32 / kGroup;    // 5 lanes a warp
@@ -93,7 +74,7 @@ __device__ __forceinline__ const int64_t* coord(int c, const int64_t* x, const i
 }
 
 __global__ void __launch_bounds__(32 * kWarps)
-    padd_split_kernel(const int64_t* __restrict__ x1, const int64_t* __restrict__ y1,
+    padd_kernel(const int64_t* __restrict__ x1, const int64_t* __restrict__ y1,
                       const int64_t* __restrict__ z1, const int64_t* __restrict__ x2,
                       const int64_t* __restrict__ y2, const int64_t* __restrict__ z2,
                       int64_t* __restrict__ ox, int64_t* __restrict__ oy,
@@ -150,16 +131,12 @@ __global__ void __launch_bounds__(32 * kWarps)
 
 }  // namespace
 
-// G: threads per lane, 1 (padd_kernel) or 6 (padd_split_kernel).
 extern "C" int halo_padd(const void* x1, const void* y1, const void* z1, const void* x2,
                          const void* y2, const void* z2, void* ox, void* oy, void* oz,
-                         int64_t n, int G, void* stream) {
-  if (G != 1 && G != kGroup) return (int)cudaErrorInvalidValue;
+                         int64_t n, void* stream) {
   if (n > 0) {
-    const int lanes = G == 1 ? kBlock1 : kLanes;  // lanes per block
-    const unsigned blocks = (unsigned)((n + lanes - 1) / lanes);
-    auto kernel = G == 1 ? padd_kernel : padd_split_kernel;
-    kernel<<<blocks, G == 1 ? kBlock1 : 32 * kWarps, 0, (cudaStream_t)stream>>>(
+    const unsigned blocks = (unsigned)((n + kLanes - 1) / kLanes);
+    padd_kernel<<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(
         (const int64_t*)x1, (const int64_t*)y1, (const int64_t*)z1, (const int64_t*)x2,
         (const int64_t*)y2, (const int64_t*)z2, (int64_t*)ox, (int64_t*)oy, (int64_t*)oz, n);
   }

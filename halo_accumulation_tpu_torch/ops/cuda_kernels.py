@@ -5,7 +5,7 @@ every Pallas kernel of `halo_accumulation_tpu/ops/pallas_kernels.py`:
 
   fmul           <- _fmul_kernel           Fq multiply (the others' inner loop)
   padd           <- _padd_kernel           complete projective add (a lane split across
-                                           G threads, G from padd_split(width))
+                                           six threads)
   pdbl           <- _pdbl_kernel           k complete projective doubles per launch
   bucket_masked  <- _bucket_kernel_masked  masked bucket reduction, sort-payload MSM
                                            (a column split across T threads)
@@ -44,10 +44,6 @@ AFFINE_LANES, PROJ_LANES = 40, 64
 # one resident wave of the H100 at 255 registers a thread (132 SMs x 256 =
 # 33,792); the most threads per column; the fewest pad slots per chunk.
 BUCKET_FILL_THREADS, BUCKET_MAX_SPLIT, BUCKET_MIN_CHUNK = 1 << 15, 16, 8
-# padd's layouts (threads per lane: one, or six sharing an add) and the
-# widest launch that takes the split one (padd_split)
-PADD_SPLIT, PADD_SPLIT_MAX_LANES = 6, 1 << 15
-PADD_LAYOUTS = (1, PADD_SPLIT)
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
 
@@ -75,7 +71,7 @@ KERNELS = {
     k.name: k
     for k in (
         Kernel("fmul", "halo_accumulation_tpu/ops/pallas_kernels.py:65", [_VP] * 3 + [_I64, _VP]),
-        Kernel("padd", "halo_accumulation_tpu/ops/pallas_kernels.py:69", [_VP] * 9 + [_I64, _I32, _VP]),
+        Kernel("padd", "halo_accumulation_tpu/ops/pallas_kernels.py:69", [_VP] * 9 + [_I64, _VP]),
         Kernel("pdbl", "halo_accumulation_tpu/ops/pallas_kernels.py:346", [_VP] * 6 + [_I64, _I32, _VP]),
         Kernel("bucket_masked", "halo_accumulation_tpu/ops/pallas_kernels.py:262",
                [_VP] * 5 + [_I32, _I64, _I64, _I32, _VP]),
@@ -218,17 +214,6 @@ def _identity_cols(n: int, device):
     return x, y, x.clone()
 
 
-def padd_split(n: int) -> int:
-    """Threads per lane G of the padd kernel, from the width n alone (so
-    the choice never depends on the device; both layouts return the same
-    limbs): PADD_SPLIT threads up to PADD_SPLIT_MAX_LANES lanes, where the
-    add's two levels of six multiplies run side by side (3.7 to 3.9 times
-    faster at 1 to 30 lanes on the H100), and one thread per lane beyond,
-    where the card is full and one thread a lane wastes no issue slots
-    (PERF.md, padd by width)."""
-    return PADD_SPLIT if n <= PADD_SPLIT_MAX_LANES else 1
-
-
 def bucket_split(padp: int, cols: int) -> int:
     """Threads per column T of the masked bucket reduction, from the shapes
     alone (never from the device, so that kernel and twin follow the same
@@ -367,20 +352,15 @@ def fmul(a, b):
     return out
 
 
-def padd(P, Q, G: int | None = None):
-    """Complete add of two (x, y, z) tuples of (18, n) limb tensors.  G:
-    threads per lane of the kernel (default padd_split(n)); every layout
-    gives the twin's limbs, so the twin takes none."""
-    G = padd_split(P[0].shape[-1]) if G is None else G
-    if G not in PADD_LAYOUTS:
-        raise ValueError(f"padd runs {', '.join(map(str, PADD_LAYOUTS))} threads per lane, got {G}")
+def padd(P, Q):
+    """Complete add of two (x, y, z) tuples of (18, n) limb tensors."""
     if _on_cpu(*P, *Q):
         return padd_plain(P, Q)
     ins = [t.contiguous() for t in (*P, *Q)]
     n = _check_planes(*ins)
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
     if n:
-        _launch("padd", n, *(t.data_ptr() for t in ins + outs), n, G)
+        _launch("padd", n, *(t.data_ptr() for t in ins + outs), n)
     return tuple(outs)
 
 

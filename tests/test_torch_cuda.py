@@ -22,7 +22,7 @@ pytestmark = pytest.mark.cuda
 
 CHAIN = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, ".chain_cache", "chain_512_10.bin")
 LANES = 4096
-PADD_WIDTHS = (1, 2, 5, 10, 30, 7936, 65536, 79360)  # padd widths held to the twin at every layout
+PADD_WIDTHS = (1, 2, 5, 10, 30, 7936, 65536, 79360)  # padd widths held to the twin
 # the kernels each path must launch, by MSM setting
 MUST_LAUNCH = {"sortrows": {"fmul", "padd", "pdbl", "bucket_masked"},
                "rowperm": {"fmul", "padd", "pdbl", "bucket_accum"}}
@@ -86,18 +86,16 @@ def padd_lanes():
 
 @pytest.mark.parametrize("n", PADD_WIDTHS)
 def test_padd_layouts_match_twin(padd_lanes, n):
-    """Every padd layout (threads per lane) equals the twin limb for limb
-    at the paths' widths, the edge lanes first; each launch counts once,
-    at its width; the default layout (padd_split(n)) gives the same."""
+    """The six-threads-per-lane padd equals the twin limb for limb at the
+    paths' widths, the edge lanes first; each launch counts once, at its
+    width."""
     P, Q = (tuple(c[:, :n] for c in X) for X in padd_lanes)
     want = ck.padd_plain(P, Q)
-    for G in ck.PADD_LAYOUTS:
-        ck.reset_launches()
-        got = ck.padd(P, Q, G)
-        torch.cuda.synchronize()
-        assert ck.launch_counts()["padd"] == 1 and ck.launch_widths()["padd"] == {n: 1}
-        assert all(torch.equal(g, w) for g, w in zip(got, want)), G
-    assert all(torch.equal(g, w) for g, w in zip(ck.padd(P, Q), want))
+    ck.reset_launches()
+    got = ck.padd(P, Q)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["padd"] == 1 and ck.launch_widths()["padd"] == {n: 1}
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("shape", [(40, 512), (136, 4096)], ids=["pad40", "pad136"])

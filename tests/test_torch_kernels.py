@@ -7,10 +7,12 @@ JAX curve ops, limb for limb; the row-permutation bucket sums to the body
 of _bucket_kernel_aff / _bucket_kernel_proj, limb for limb; the masked
 bucket reduction, at every split of a column across threads, to per-column
 sums on the int oracle, with dead and foreign slots.  The six-threads-per-lane
-padd kernel's operand tables are replayed from its source on the plain field
-ops and held to the twin.  The kernels themselves are held to these twins on
-a card by tests/test_torch_cuda.py."""
+padd kernel's operand tables are replayed on the plain field ops and held to
+the twin, and each kernel's ctypes signature to its C entry point.  The
+kernels themselves are held to these twins on a card by
+tests/test_torch_cuda.py."""
 
+import ctypes
 import pathlib
 import re
 
@@ -343,7 +345,7 @@ def padd_edge_lanes():
 def test_padd_twin_edge_lanes(padd_edge_lanes, n):
     """padd_plain on the first n edge-case lanes equals the list-form
     padd_list and the JAX curve's padd limb for limb, and the int oracle;
-    the wrapper (at padd_split(n) threads per lane) returns the same."""
+    the wrapper returns the same."""
     ps, qs, P, Q, jwant = padd_edge_lanes
     Pn, Qn = tuple(c[:, :n] for c in P), tuple(c[:, :n] for c in Q)
     got = ck.padd_plain(Pn, Qn)
@@ -355,18 +357,29 @@ def test_padd_twin_edge_lanes(padd_edge_lanes, n):
     assert cv.to_host(cv.PointVec(*got)) == [F.p_add(p, q) for p, q in zip(ps[:n], qs[:n])]
 
 
+# csrc/padd.cu's operand tables, four bits an entry, entry r (thread r of a
+# lane) lowest: level A's coordinate and, for threads 3 to 5, the second
+# coordinate of the cross sum; the middle section's sum operands and the
+# product it subtracts from or adds to; level C's two operands.
+PADD_TABLES = {"a_first": 0x010210, "a_second": 0x221000, "mid_p": 0x000010, "mid_q": 0x000221,
+               "mid_d": 0x011543, "c_left": 0x542310, "c_right": 0x015423}
+
+
 def test_padd_split_dataflow_matches_twin(padd_edge_lanes):
     """The six-threads-per-lane add of csrc/padd.cu, thread by thread, on
-    the plain field ops: its operand tables (the nib(0x...u, r) constants,
-    read from the source in order) pick, for thread r, the level A
+    the plain field ops: PADD_TABLES pick, for thread r, the level A
     operands, the middle section's inputs and the level C operands, and the
     three output coordinates come from products (0, 1), (2, 3), (4, 5).
     Run so, it equals padd_plain limb for limb: the kernel's every product,
-    small multiply, sub and add is the twin's."""
+    small multiply, sub and add is the twin's.  Every table is a literal of
+    the source.  A development aid: the check of record is the card test
+    test_padd_layouts_match_twin, which holds the compiled kernel to the
+    twin at the paths' widths."""
     _, _, P, Q, _ = padd_edge_lanes
-    tables = [int(t, 16) for t in re.findall(r"nib\((0x[0-9a-f]+)u, r\)", PADD_CU.read_text())]
-    assert len(tables) == 7
-    cA0, cA1, mid_p, mid_q, mid_d, cC0, cC1 = tables
+    src = PADD_CU.read_text()
+    for name, t in PADD_TABLES.items():
+        assert re.search(rf"\b0x0*{t:x}u?\b", src, re.IGNORECASE), name
+    T = PADD_TABLES
 
     def nib(t, r):
         return (t >> (4 * r)) & 0xF
@@ -374,76 +387,72 @@ def test_padd_split_dataflow_matches_twin(padd_edge_lanes):
     f = FQ
     A = []
     for r in range(6):  # level A
-        a, b = P[nib(cA0, r)], Q[nib(cA0, r)]
+        a, b = P[nib(T["a_first"], r)], Q[nib(T["a_first"], r)]
         if r >= 3:
-            a, b = f.add(a, P[nib(cA1, r)]), f.add(b, Q[nib(cA1, r)])
+            a, b = f.add(a, P[nib(T["a_second"], r)]), f.add(b, Q[nib(T["a_second"], r)])
         A.append(f.mul(a, b))
     B = []
     for r in range(6):  # middle
-        u = f.mul_small(A[2], ck.B3) if r in (3, 4) else f.add(A[nib(mid_p, r)], A[nib(mid_q, r)])
-        d = A[nib(mid_d, r)]
+        u = f.mul_small(A[2], ck.B3) if r in (3, 4) else f.add(A[nib(T["mid_p"], r)], A[nib(T["mid_q"], r)])
+        d = A[nib(T["mid_d"], r)]
         v = f.sub(d, u) if r < 4 else f.add(d, u)
         B.append(f.mul_small(v, ck.B3) if r == 2 else v)
-    C = [f.mul(B[nib(cC0, r)], B[nib(cC1, r)]) for r in range(6)]  # level C
+    C = [f.mul(B[nib(T["c_left"], r)], B[nib(T["c_right"], r)]) for r in range(6)]  # level C
     got = (f.sub(C[0], C[1]), f.add(C[2], C[3]), f.add(C[4], C[5]))
     assert all(torch.equal(g, w) for g, w in zip(got, ck.padd_plain(tuple(P), tuple(Q))))
 
 
-def test_padd_split_from_width():
-    """The padd layout is a function of the width alone: six threads per
-    lane at every width the paths launch up to 32,768 lanes (the Horner
-    combines' 1 to 30, the row MSMs, the 7,936 and 15,872 lanes of the
-    suffix weighting), one thread per lane beyond (decide_many's 79,360)."""
-    for n in (1, 2, 10, 30, 128, 1024, 7936, 15872, 28800, 32768):
-        assert ck.padd_split(n) == 6
-    for n in (32769, 65536, 79360):
-        assert ck.padd_split(n) == 1
-    assert set(ck.PADD_LAYOUTS) == {1, 6}
-
-
 def test_wrappers_record_no_width_for_twins(lanes):
     """Twins launch nothing, so the wrappers record no launch width on the
-    CPU; a layout the kernel does not have is refused."""
+    CPU."""
     _, _, P, Q = lanes
     ck.reset_launches()
     ck.padd(tuple(P), tuple(Q))
-    ck.padd(tuple(P), tuple(Q), 1)
     ck.pdbl(tuple(P), 2)
     ck.fmul(P.x, Q.x)
     M, meta, _ = _bucket_case(np.random.default_rng(3), L)
     ck.bucket_masked(M, meta)
     assert ck.launch_widths() == {k: {} for k in ck.KERNELS}
-    with pytest.raises(ValueError):
-        ck.padd(tuple(P), tuple(Q), 8)
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int64_t": ctypes.c_int64, "int": ctypes.c_int}
+
+
+@pytest.mark.parametrize("name", list(ck.KERNELS))
+def test_kernel_argtypes_match_c_entry(name):
+    """Each kernel's ctypes argtypes are the parameters of the C entry point
+    halo_<name> in its source, in order: a mismatch would pass garbage to
+    the card without an error."""
+    k = ck.KERNELS[name]
+    src = (PADD_CU.parent / f"{name}.cu").read_text()
+    m = re.search(rf'extern "C" int halo_{name}\(([^)]*)\)', src)
+    assert m, f"no C entry halo_{name} in {k.source}"
+    params = [re.sub(r"\s+", " ", p.strip()) for p in m.group(1).split(",")]
+    assert [_C_TYPES[p.rsplit(" ", 1)[0].replace(" *", "*")] for p in params] == k.argtypes
 
 
 _PTXAS_LOG_PADD = """\
-ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__3fd67ec6_7_padd_cu_81efb88e17padd_split_kernelEPKlS1_S1_S1_S1_S1_PlS2_S2_l' for 'sm_90a'
-ptxas info    : Function properties for _ZN39_GLOBAL__N__3fd67ec6_7_padd_cu_81efb88e17padd_split_kernelEPKlS1_S1_S1_S1_S1_PlS2_S2_l
+ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__3fd67ec6_7_padd_cu_81efb88e11padd_kernelEPKlS1_S1_S1_S1_S1_PlS2_S2_l' for 'sm_90a'
+ptxas info    : Function properties for _ZN39_GLOBAL__N__3fd67ec6_7_padd_cu_81efb88e11padd_kernelEPKlS1_S1_S1_S1_S1_PlS2_S2_l
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 80 registers, used 0 barriers, 17280 bytes smem
 ptxas info    : Function properties for _ZN4halo3mulENS_2FeES0_
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Function properties for _ZN4halo9mul_smallENS_2FeEj
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__3fd67ec6_7_padd_cu_81efb88e11padd_kernelEPKlS1_S1_S1_S1_S1_PlS2_S2_l' for 'sm_90a'
-ptxas info    : Function properties for _ZN39_GLOBAL__N__3fd67ec6_7_padd_cu_81efb88e11padd_kernelEPKlS1_S1_S1_S1_S1_PlS2_S2_l
-    72 bytes stack frame, 72 bytes spill stores, 144 bytes spill loads
-ptxas info    : Used 255 registers, used 0 barriers, 72 bytes cumulative stack size
 ptxas info    : Function properties for _ZN4halo3subENS_2FeES0_
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 """
 
 
 def test_parse_ptxas_reads_padd_entries():
-    """Both padd entries of one build (the split and the one-thread kernel)
-    are read apart, each with its own callees."""
+    """The six-threads-per-lane padd entry (its register line also names
+    the shared memory) is read with each of its callees."""
     got = ck.parse_ptxas(_PTXAS_LOG_PADD)
     assert got == {
-        "padd_split_kernel": {"stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 80},
-        "padd_split_kernel/halo::mul": {"stack": 0, "spill_stores": 0, "spill_loads": 0},
-        "padd_split_kernel/halo::mul_small": {"stack": 0, "spill_stores": 0, "spill_loads": 0},
-        "padd_kernel": {"stack": 72, "spill_stores": 72, "spill_loads": 144, "registers": 255},
+        "padd_kernel": {"stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 80},
+        "padd_kernel/halo::mul": {"stack": 0, "spill_stores": 0, "spill_loads": 0},
+        "padd_kernel/halo::mul_small": {"stack": 0, "spill_stores": 0, "spill_loads": 0},
         "padd_kernel/halo::sub": {"stack": 0, "spill_stores": 0, "spill_loads": 0},
     }
 
