@@ -8,22 +8,29 @@ Phases, each printing one JSON line:
      then ptxas: each kernel function's registers and spills.
   2. urs: the 16384-generator URS generated on the card, sampled against
      the int oracle.
-  3. kernels: fmul and padd at 65,536 lanes (padd timed over ten launches
-     queued); padd held to its twin from 1 to 79,360 lanes, edge lanes
-     first (identity, P == Q, P == -Q), reported also at the Horner
-     combine's 10 lanes and timed from 1 to 79,360 lanes;
-     pdbl with k = 1, 4, 8 doublings per launch at 1, 10, 32 and 65,536
-     lanes, reported at
-     decide_many's Horner combine (10 lanes, k = 8) and timed at k = 8 from
-     1 to 65,536 lanes; the masked bucket reduction at the n = 16384
-     decider's shape with a uniform fill, at both deciders' real fills
-     (digits of random scalars over the URS, through the sort-payload MSM's
-     own gather) and at the prover's projective round shape, timed at every
-     split; and the row-permutation bucket kernel at the n = 16384
-     main group's shapes (40 and 64 lanes, 128 slots, 7936 columns, URS
-     rows with about 5 % sentinel slots).  Each is held against its plain
-     PyTorch twin (exact limb equality) and, on a sample, against the
-     pure-Python int oracle; median times of kernel and twin by CUDA
+  3. kernels: fmul and padd at 65,536 lanes (both timed over ten launches
+     queued), fmul also on every pair of its edge lanes (fmul_edge_limbs),
+     timed at 64, 128 and 256 threads a block, and with each of the ten
+     launches on its own inputs (FMUL_ROTATE pairs, more than the L2 holds)
+     beside torch.add of the same int64 planes (the same bytes, no
+     arithmetic);
+     padd held to its twin from 1 to 79,360 lanes, edge lanes first
+     (identity, P == Q, P == -Q), reported also at the Horner combine's 10
+     lanes and timed from 1 to 79,360 lanes; pdbl with k = 1, 4, 8
+     doublings per launch at 1, 10, 32 and 65,536 lanes, reported at
+     decide_many's Horner combine (10 lanes, k = 8) and timed at k = 8
+     from 1 to 65,536 lanes (ten launches queued); the masked bucket
+     reduction at the n = 16384 decider's shape with a uniform fill, at
+     both deciders' real fills (digits of random scalars over the URS,
+     through the sort-payload MSM's own gather) and at the prover's
+     projective round shape, timed at every split; and the row-permutation
+     bucket kernel at the n = 16384 main group's shapes (40 and 64 lanes,
+     128 slots, 7936 columns, URS rows with about 5 % sentinel slots) and
+     at its folded top window's (48 slots, 1024 columns), held to its twin
+     and timed at every split.
+     Each is held against its plain PyTorch twin (its limbs canonical and
+     equal to FQ.canon of the twin's, see _same) and, on a sample, against
+     the pure-Python int oracle; median times of kernel and twin by CUDA
      events, and each kernel's bound: the larger of the least bytes its
      function moves over the memory rate and the least 32-bit multiplies
      it needs over the IMAD rate (see MIN_MULS_FMUL).
@@ -35,16 +42,16 @@ Phases, each printing one JSON line:
   5. chain: .chain_cache/chain_16384_10.bin through verify_chain and
      decide_many, first under sortrows and then under rowperm (both must
      accept; wall times of the first run and the median of three more),
-     and tampered copies through both (must reject with the reference's
-     messages).
+     and tampered copies and one-step prefixes (must reject with the
+     reference's messages, REJECT_TEXTS).
   6. profile: one more sortrows run of each chain path, and one prover
      step (build_chain with k = 1) under each setting, under torch.profiler
      and under cProfile (tables in build/profile/).
 Every path runs with the launch counts set to 0 just before it and read
 just after it, and must launch the kernels its pipeline runs: bucket_accum
 on the rowperm paths, bucket_masked on the sortrows paths; the padd_widths
-line gives each path's padd launches by width.  The run fails if any
-kernel has no launch over all paths.  The last line is
+and bucket_accum_widths lines give each path's launches of those kernels
+by width.  The run fails if any kernel has no launch over all paths.  The last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 without CUDA the script exits 1 before printing anything.
 """
@@ -76,9 +83,12 @@ PADD_PATH_LANES = 10  # decide_many's Horner combine: one add per window over it
 PDBL_CHECKED = (1, 10, 32, 65536)  # pdbl widths held to the twin at k = 1, 4, 8
 PDBL_TIMED = (1, 10, 32, 1024, 16384, 65536)  # pdbl widths timed at k = PDBL_K
 PDBL_K = 8
+FMUL_THREADS_TIMED = (64, 128, 256)  # fmul block sizes timed at LANES
+FMUL_ROTATE = 10  # input pairs of the L2-rotated fmul timing: 10 x 18.9 MB, the H100's L2 holds 50 MB
 PDBL_PATH_LANES = 10  # decide_many's Horner combine: its ten stacked deciders, PDBL_K = c doublings a window
 QUEUE_CYCLES = 10_000_000  # about 5 ms of SM clock: covers the host's enqueue of ten launches
-SPLITS = (1, 2, 4, 8, 16)  # bucket_masked threads per column, all timed
+SPLITS = (1, 2, 4, 8, 16)  # threads per column of both bucket kernels, all held to the twin and timed
+ACCUM_TOP_SHAPE = (48, 1024)  # pad, columns of the rowperm MSM's folded top window at n = 16384
 TWIN_MAX_LANES = 1 << 18  # widest bucket_masked_plain run (T * cols lanes): its multiplies take 16 GB at 2^20
 N = 16384
 PROVE_STEPS = 2
@@ -90,30 +100,61 @@ SMS = 132
 # implementation.  Bytes: an Fq or Fr value is 32 bytes (255 bits), an
 # affine point 64, a projective one 96, a row index 4 (N + 1 < 2^32).
 # Operations: 32-bit multiplies (each 32 x 32 -> 64-bit product counted as
-# one IMAD, which is a lower bound).  A 255-bit modular multiply on s = 8
-# 32-bit limbs (Montgomery, CIOS) takes s^2 products for a * b and s^2 + s
-# for the reduction: 2 s^2 + s = 136.  Complete formulas for a = 0
-# (Renes-Costello-Batina 2016): a projective add (Alg. 7) 12 multiplies, a
-# mixed add of an affine point (Alg. 8) 11, a double (Alg. 9) 6 multiplies
-# and 2 squares = 8; the multiplies by 3b = 15 are shifts and adds.
+# one IMAD, which is a lower bound).  A 255-bit multiply modulo this q, on
+# s = 8 32-bit words, the fewer of two designs on q's own words (q = 2^254 +
+# c, c < 2^126: word 0 of q is 1, words 1 to 3 are c's, words 4 to 6 are 0,
+# word 7 is 2^30):
+#   Montgomery CIOS, R = 2^256: s^2 = 64 products for a b; per word of the
+#     reduction m = -t0 needs none (q == 1 mod 2^32), and m q needs three,
+#     for words 1 to 3 (words 0 and 7 are 1 and 2^30: shifts): 64 + 8 x 3
+#     = 88;
+#   pseudo-Mersenne, 2^256 == -4c: 64 for a b, the high half times 4c (8
+#     words x its words 1 to 3; word 0 is 4, a shift) 24, the fold's four
+#     high words times 4c again 12: 100, and a product-free final
+#     correction.
+# So 88.  A square a a needs only s (s + 1) / 2 = 36 products (each cross
+# product once, doubled by a shift), then the same 24 for Montgomery's
+# reduction: 60.  Complete formulas for a = 0 (Renes-Costello-Batina 2016):
+# a projective add (Alg. 7) 12 multiplies, a mixed add of an affine point
+# (Alg. 8) 11, a double (Alg. 9) 6 multiplies and 2 squares (y y, z z); the
+# multiplies by 3b = 15 are shifts and adds.
 FQ_BYTES = 32
-MIN_MULS_FMUL = 2 * 8 * 8 + 8
+MIN_MULS_FMUL = 64 + 8 * 3
+MIN_MULS_SQR = 8 * 9 // 2 + 8 * 3
 MIN_MULS_PADD = 12 * MIN_MULS_FMUL
 MIN_MULS_MADD = 11 * MIN_MULS_FMUL
-MIN_MULS_PDBL = 8 * MIN_MULS_FMUL
-# This implementation's own count, from csrc/field.cuh (18 15-bit limbs): a
-# field multiply is 18 x 18 limb products plus the 2c folds of reduce_wide
-# (8 nonzero digits x (22 + 17 + 3) limbs) and of fold_tail (8 x 3):
-# 324 + 336 + 24 = 684; mul_small 18 + 24 = 42; sub 24.  Reported beside
-# the bound as impl_muls32, to show how much of the gap is the limb choice.
-IMPL_MULS_FMUL = 684
-IMPL_MULS_PADD = 12 * IMPL_MULS_FMUL + 2 * 42 + 5 * 24  # curve.cuh padd: 12 mul, 2 mul_small, 5 sub
-IMPL_MULS_PDBL = 8 * IMPL_MULS_FMUL + 3 * 42 + 1 * 24  # curve.cuh pdbl: 8 mul, 3 mul_small, 1 sub
+MIN_MULS_PDBL = 6 * MIN_MULS_FMUL + 2 * MIN_MULS_SQR
+# This implementation's own count, from csrc/field.cuh (8 32-bit words,
+# pseudo-Mersenne): a multiply is 64 products, 24 and 12 in the two folds by
+# 4c and 3 in finish (the small multiple of c it subtracts) = 103; mul_small
+# 8 + 3; add and sub 3 each (finish).  Reported beside the bound as
+# impl_muls32, to show how much of the gap is the implementation's;
+# tests/test_torch_field_words.py counts them on a model of field.cuh.
+IMPL_MULS_FMUL = 103
+IMPL_MULS_SMALL = 11
+IMPL_MULS_ADD = 3
+# curve.cuh padd: 12 mul, 2 mul_small, 5 sub, 14 add; pdbl: 8 mul, 3
+# mul_small, 1 sub, 3 add (the loads' and stores' conversions not counted)
+IMPL_MULS_PADD = 12 * IMPL_MULS_FMUL + 2 * IMPL_MULS_SMALL + (5 + 14) * IMPL_MULS_ADD
+IMPL_MULS_PDBL = 8 * IMPL_MULS_FMUL + 3 * IMPL_MULS_SMALL + (1 + 3) * IMPL_MULS_ADD
+# The JAX package's rejection texts that phase 5 provokes ({k} a step, {b}
+# a batch index or step, as in halo_accumulation_tpu/acc.py and pcdl.py)
+REJECT_TEXTS = {
+    "v": "h(z) != v at step {k}",
+    "row": "C_(log_n) != CM.Commit_Sigma(c || v') (batch index {b})",
+    "c_bar": "C_bar' != C_bar at step {k}",
+    "z": "z' != z at step {k}",
+    "d": "d_i != d at step {k}",
+    "length": "proof length mismatch",
+    "u0": "U_0 != PCDL.Commit(h_0) at step {b}",
+    "u": "U != CM.Commit(ck, h_vec)",
+}
 # the kernels each path must launch: its MSM setting's bucket kernel, the
 # curve kernels, and on the verifier paths the field multiply of peq
 MUST_LAUNCH = {"sortrows": {"padd", "pdbl", "bucket_masked"},
                "rowperm": {"padd", "pdbl", "bucket_accum"}}
 VERIFY_ALSO = {"fmul"}
+WIDTHS_KEPT = ("padd", "bucket_accum")  # kernels whose launches by width each path reports
 
 
 def emit(obj) -> None:
@@ -166,14 +207,16 @@ def msm_impl(name: str):
 
 def counted(path: str, must: set, fn, launches: dict, widths: dict) -> float:
     """Wall seconds of one run of fn with the launch counts zeroed just
-    before and read just after (into launches[path], and padd's launches by
-    width into widths[path]); the path must launch every kernel in must."""
+    before and read just after (into launches[path], and the WIDTHS_KEPT
+    kernels' launches by width into widths[kernel][path]); the path must
+    launch every kernel in must."""
     from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
 
     ck.reset_launches()
     s = wall(fn)
     launches[path] = ck.launch_counts()
-    widths[path] = ck.launch_widths()["padd"]
+    for k in WIDTHS_KEPT:
+        widths.setdefault(k, {})[path] = ck.launch_widths()[k]
     missing = sorted(k for k in must if launches[path][k] == 0)
     if missing:
         raise AssertionError(f"{path} launched no {missing} kernel: {launches[path]}")
@@ -284,9 +327,38 @@ def _rand_lam(rng, n, dev):
     return FQ.from_ints([int.from_bytes(rng.bytes(40), "little") % (F.Q - 1) + 1 for _ in range(n)], dev)
 
 
-def _same(what: str, got, want) -> None:
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError(f"{what}: kernel != plain twin")
+def _same(what: str, got, want) -> int:
+    """Hold a kernel's output to its plain twin: every coordinate canonical
+    (clean 15-bit limbs of a value below q, which FQ.canon leaves as they
+    are) and equal to FQ.canon of the twin's, limb for limb.  Canonical form
+    is unique, so this holds the values as strictly as limb equality did;
+    it gives up only the twin's lazy representative, which the kernels'
+    8-word arithmetic does not keep.  -> the largest limb difference (0)."""
+    from halo_accumulation_tpu_torch.ops.field import FQ
+
+    err = 0
+    for g, w in zip(got, want):
+        cw = FQ.canon(w)
+        if g.numel():
+            err = max(err, int((g - cw).abs().max()))
+        if not torch.equal(FQ.canon(g), g):
+            raise AssertionError(f"{what}: kernel limbs are not canonical")
+        if not torch.equal(g, cw):
+            raise AssertionError(f"{what}: kernel != FQ.canon(plain twin) (max |diff| {err})")
+    return err
+
+
+def fmul_edge_limbs() -> list[list[int]]:
+    """The fmul edge lanes as 18 limbs each: 0, 1, q - 1, q, q + 1, 2^254,
+    2q - 1, 2q, 2^255 - 1 (the top of the kernels' 8-word invariant) and
+    2^257 - 1 (the boundary's bound) in clean limbs, and the boundary's lazy
+    maximum, every limb at 0x8008 (nearly clean) with limb 17 at 2."""
+    from halo_accumulation_tpu_torch import fields as F
+
+    q = F.Q
+    vals = [0, 1, q - 1, q, q + 1, 1 << 254, 2 * q - 1, 2 * q, (1 << 255) - 1, (1 << 257) - 1]
+    clean = [[(v >> (15 * i)) & 0x7FFF for i in range(17)] + [v >> 255] for v in vals]
+    return clean + [[0x8008] * 17 + [2]]
 
 
 def _doubled(P, k: int):
@@ -317,7 +389,7 @@ def _pdbl_widths(P, host_p, sm_mhz) -> dict:
     out = {}
     for n in PDBL_TIMED:
         Pn = tuple(c[:, :n].contiguous() for c in P)
-        ms = cuda_time(lambda: [ck.pdbl(Pn, PDBL_K) for _ in range(10)], 5)
+        ms = cuda_time(lambda: [ck.pdbl(Pn, PDBL_K) for _ in range(10)], 5, queued=True)
         b = bound(6 * FQ_BYTES * n, MIN_MULS_PDBL * PDBL_K * n, IMPL_MULS_PDBL * PDBL_K * n, sm_mhz)
         out[n] = {"us_per_double": ms * 1e3 / (10 * PDBL_K),
                   "bound_us_per_double": b["bound_ms"] * 1e3 / PDBL_K, "bound_by": b["bound_by"]}
@@ -356,9 +428,7 @@ def _padd_widths(P, Q, host_p, host_q, kind, sm_mhz) -> dict:
             raise AssertionError(f"padd at {n} lanes disagrees with the int oracle")
     n = PADD_PATH_LANES
     Pn, Qn = cut(n)
-    got, want = ck.padd(Pn, Qn), ck.padd_plain(Pn, Qn)
-    _same(f"padd n={n}", got, want)
-    path = {"lanes": n, "max_abs_err": max(int((g - w).abs().max()) for g, w in zip(got, want)),
+    path = {"lanes": n, "max_abs_err": _same(f"padd n={n}", ck.padd(Pn, Qn), ck.padd_plain(Pn, Qn)),
             "ms": cuda_time(lambda: [ck.padd(Pn, Qn) for _ in range(10)], 5, queued=True) / 10,
             "plain_ms": cuda_time(lambda: ck.padd_plain(Pn, Qn), 5), "library_ms": None,
             **bound(9 * FQ_BYTES * n, MIN_MULS_PADD * n, IMPL_MULS_PADD * n, sm_mhz)}
@@ -449,6 +519,57 @@ def _decider_fill(pp, rng, K: int):
     return M, meta
 
 
+def _fmul_timings(a, b, got) -> dict:
+    """fmul at LANES by block size, microseconds a launch over ten queued
+    launches: on the same a, b (hot in L2, as the ms column) and with each
+    launch on its own pair (rolls of a, b: FMUL_ROTATE pairs, more than the
+    L2 holds, so the inputs come from HBM); beside them torch.add of the
+    same planes, which moves the same bytes with no arithmetic: the int64
+    boundary's floor as this card reaches it."""
+    from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
+
+    pairs = [(torch.roll(a, i, 1), torch.roll(b, i, 1)) for i in range(FMUL_ROTATE)]
+
+    def us(fn):
+        return cuda_time(fn, 7, queued=True) * 1e3 / 10
+
+    by_threads = {}
+    for t in FMUL_THREADS_TIMED:
+        if not torch.equal(ck.fmul(a, b, t), got):
+            raise AssertionError(f"fmul at {t} threads a block differs from {ck.FMUL_THREADS}")
+        by_threads[t] = {"us": us(lambda t=t: [ck.fmul(a, b, t) for _ in range(10)]),
+                         "us_l2_rotated": us(lambda t=t: [ck.fmul(x, y, t) for x, y in pairs])}
+    return {"threads": ck.FMUL_THREADS, "by_threads": by_threads,
+            "plane_add_us": us(lambda: [torch.add(a, b) for _ in range(10)]),
+            "plane_add_us_l2_rotated": us(lambda: [torch.add(x, y) for x, y in pairs])}
+
+
+def _accum_sweep(rows, src) -> dict:
+    """bucket_accum at every split of SPLITS, each held to its twin at
+    that split on every column: median ms by T."""
+    from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
+
+    lanes, (pad, cols) = rows.shape[1], src.shape
+    out = {}
+    for t in SPLITS:
+        _same(f"bucket_accum {lanes}x{pad}x{cols} T={t}", ck.bucket_accum(rows, src, t),
+              ck.bucket_accum_plain(rows, src, t))
+        out[t] = cuda_time(lambda t=t: ck.bucket_accum(rows, src, t), 10)
+    return out
+
+
+def _accum_top_window(rows, rng) -> dict:
+    """bucket_accum at the folded top window's shape (ACCUM_TOP_SHAPE: the
+    n = 16384 MSM's last window, 128 columns x 384 slots folded 8 ways),
+    rows of the same table: the split chosen there and the sweep."""
+    from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
+
+    pad, cols = ACCUM_TOP_SHAPE
+    src = torch.from_numpy(rng.integers(0, rows.shape[0], (pad, cols))).to(rows.device)
+    return {"shape": [rows.shape[1], pad, cols], "split": ck.accum_split(pad, cols),
+            "ms_by_split": _accum_sweep(rows, src)}
+
+
 def phase_kernels(dev, pp, sm_mhz):
     """Every kernel against its twin at the main path's shapes."""
     from halo_accumulation_tpu_torch import fields as F
@@ -461,26 +582,33 @@ def phase_kernels(dev, pp, sm_mhz):
     res = {}
 
     def record(name, got, want, ms, plain_ms, bnd, **extra):
-        exact = all(torch.equal(g, w) for g, w in zip(got, want))
-        err = max(int((g - w).abs().max()) for g, w in zip(got, want))
-        if not exact:
-            raise AssertionError(f"{name}: kernel != plain twin (max |diff| {err})")
-        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **bnd, **extra}
+        res[name] = {"max_abs_err": _same(name, got, want), "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                     **bnd, **extra}
 
-    # fmul: random lazy limbs (value < 2^257), canonical values mixed in
+    # fmul: random lazy limbs (value < 2^257), timed over ten launches
+    # queued; then every pair of the edge lanes
     lim = rng.integers(0, 1 << 15, size=(2, L, LANES), dtype=np.int64)
     lim[:, 17] &= 3
     a, b = (torch.from_numpy(x).to(dev) for x in lim)
     got = ck.fmul(a, b)
     want = ck.fmul_plain(a, b)
-    record("fmul", [got], [want], cuda_time(lambda: ck.fmul(a, b), 20),
+    record("fmul", [got], [want], cuda_time(lambda: [ck.fmul(a, b) for _ in range(10)], 7, queued=True) / 10,
            cuda_time(lambda: ck.fmul_plain(a, b), 5),
-           bound(3 * FQ_BYTES * LANES, MIN_MULS_FMUL * LANES, IMPL_MULS_FMUL * LANES, sm_mhz))
+           bound(3 * FQ_BYTES * LANES, MIN_MULS_FMUL * LANES, IMPL_MULS_FMUL * LANES, sm_mhz),
+           **_fmul_timings(a, b, got))
     sample = rng.choice(LANES, 64, replace=False)
     ai = _raw_ints(a[:, sample])
     bi = _raw_ints(b[:, sample])
     if FQ.to_ints(got[:, sample]) != [x * y % F.Q for x, y in zip(ai, bi)]:
         raise AssertionError("fmul disagrees with the int oracle")
+    edges = fmul_edge_limbs()
+    ea, eb = (torch.tensor([e for e in edges for _ in edges], dtype=torch.int64).T.contiguous(),
+              torch.tensor([e for _ in edges for e in edges], dtype=torch.int64).T.contiguous())
+    got = ck.fmul(ea.to(dev), eb.to(dev))
+    _same("fmul edge lanes", [got], [ck.fmul_plain(ea, eb).to(dev)])
+    if FQ.to_ints(got) != [x * y % F.Q for x, y in zip(_raw_ints(ea), _raw_ints(eb))]:
+        raise AssertionError("fmul disagrees with the int oracle on the edge lanes")
+    res["fmul"]["edge_lanes"] = ea.shape[1]
 
     # padd / pdbl: identity lanes, P == Q, P == -Q, lazy projective limbs
     base, P, Q, host_p, host_q, kind = _point_pairs(rng, dev)
@@ -504,7 +632,8 @@ def phase_kernels(dev, pp, sm_mhz):
     # the pdbl row: the shape of decide_many's Horner combine
     n = PDBL_PATH_LANES
     Pn = tuple(c[:, :n].contiguous() for c in P)
-    record("pdbl", ck.pdbl(Pn, PDBL_K), ck.pdbl_plain(Pn, PDBL_K), cuda_time(lambda: ck.pdbl(Pn, PDBL_K), 20),
+    record("pdbl", ck.pdbl(Pn, PDBL_K), ck.pdbl_plain(Pn, PDBL_K),
+           cuda_time(lambda: [ck.pdbl(Pn, PDBL_K) for _ in range(10)], 7, queued=True) / 10,
            cuda_time(lambda: ck.pdbl_plain(Pn, PDBL_K), 5),
            bound(6 * FQ_BYTES * n, MIN_MULS_PDBL * PDBL_K * n, IMPL_MULS_PDBL * PDBL_K * n, sm_mhz),
            lanes=n, k=PDBL_K, by_width=_pdbl_widths(tuple(P), host_p, sm_mhz))
@@ -566,14 +695,16 @@ def phase_kernels(dev, pp, sm_mhz):
     # rows), while this kernel adds every slot, sentinels included
     live = int((srcn != N).sum())
     for lanes, rows in tables.items():
+        T = ck.accum_split(pad, cols)
         got = ck.bucket_accum(rows, src)
-        want = ck.bucket_accum_plain(rows, src)
+        want = ck.bucket_accum_plain(rows, src, T)
         point_bytes, muls = (2 * FQ_BYTES, MIN_MULS_MADD) if lanes == ck.AFFINE_LANES else (3 * FQ_BYTES, MIN_MULS_PADD)
         record(f"bucket_accum_{lanes}", got, want, cuda_time(lambda: ck.bucket_accum(rows, src), 10),
-               cuda_time(lambda: ck.bucket_accum_plain(rows, src), 2),
+               cuda_time(lambda: ck.bucket_accum_plain(rows, src, T), 2),
                bound(N * point_bytes + 4 * pad * cols + 3 * FQ_BYTES * cols, muls * live,
                      IMPL_MULS_PADD * pad * cols, sm_mhz),
-               shape=[lanes, pad, cols])
+               shape=[lanes, pad, cols], split=T, ms_by_split=_accum_sweep(rows, src),
+               top_window=_accum_top_window(rows, rng))
         for col in range(8):
             acc = None
             for p in range(pad):
@@ -629,17 +760,50 @@ def _expect_reject(fn, msg: str) -> None:
     raise AssertionError(f"tampered input accepted, expected {msg!r}")
 
 
-def phase_chain(pp, smi, launches, widths):
-    from halo_accumulation_tpu_torch import acc as acc_mod
+def _tampered(d, qss, accs, pp):
+    """[(expected text, call)]: two tampered chains (v of the last step, v
+    of the first decider's claim), then one field each of a one-step
+    prefix.  Two cases tamper the verifier's key instead, as a proof that
+    does not open under it: G0 and G1 swapped reach only the U_0 rows, G2
+    and G3 swapped only the final decider's deferred MSM.  The texts are
+    the JAX package's (REJECT_TEXTS)."""
+    import dataclasses
+
     from halo_accumulation_tpu_torch import chain
     from halo_accumulation_tpu_torch import fields as F
+    from halo_accumulation_tpu_torch import pp as pp_mod
+
+    def fast(qs, acs, D=d, key=pp):
+        return lambda: chain.verify_chain_fast(D, qs, acs, key)
+
+    def swapped(i, j):
+        gx, gy = pp.gs_x.clone(), pp.gs_y.clone()
+        gx[:, [i, j]], gy[:, [i, j]] = gx[:, [j, i]], gy[:, [j, i]]
+        return pp_mod.PublicParams(pp.n, gx, gy, pp.s, pp.h)
+
+    def bumped(a):
+        return dataclasses.replace(a, v=(a.v + 1) % F.R)
+
+    a0, q0 = accs[0], qss[0][0]
+    short = dataclasses.replace(q0, pi=dataclasses.replace(q0.pi, Ls=q0.pi.Ls[:-1], Rs=q0.pi.Rs[:-1]))
+    T = REJECT_TEXTS
+    return [
+        (T["v"].format(k=len(accs) - 1), fast(qss, accs[:-1] + [bumped(accs[-1])])),
+        (T["row"].format(b=0), lambda: chain.verify_chain_slow([bumped(a0), accs[1]], pp)),
+        (T["c_bar"].format(k=0), fast(qss[:1], [dataclasses.replace(a0, C_bar=accs[1].C_bar)])),
+        (T["z"].format(k=0), fast(qss[:1], [dataclasses.replace(a0, z=(a0.z + 1) % F.R)])),
+        (T["d"].format(k=0), fast(qss[:1], accs[:1], D=d + 1)),
+        (T["length"], fast([[short] + qss[0][1:]], accs[:1])),
+        (T["u0"].format(b=0), fast(qss[:1], accs[:1], key=swapped(0, 1))),
+        (T["u"], fast(qss[:1], accs[:1], key=swapped(2, 3))),
+    ]
+
+
+def phase_chain(pp, smi, launches, widths):
+    from halo_accumulation_tpu_torch import chain
 
     d, qss, accs = chain.load_chain(CHAIN)
     K = len(accs)
-
-    def bumped(a):
-        return acc_mod.Accumulator(a.C_bar, a.d, a.z, (a.v + 1) % F.R, a.pi, a.pi_V)
-
     paths = {
         "verify_chain": lambda: chain.verify_chain_fast(d, qss, accs, pp),
         "decide_many": lambda: chain.verify_chain_slow(accs, pp),
@@ -653,13 +817,13 @@ def phase_chain(pp, smi, launches, widths):
                 first[path] = counted(tag, MUST_LAUNCH[impl] | VERIFY_ALSO, fn, launches, widths)
             for path, fn in paths.items():
                 warm[impl][path] = float(np.median([wall(fn) for _ in range(3)]))
-            _expect_reject(lambda: chain.verify_chain_fast(d, qss, accs[:-1] + [bumped(accs[-1])], pp),
-                           f"h(z) != v at step {K - 1}")
-            _expect_reject(lambda: chain.verify_chain_slow([bumped(accs[0]), accs[1]], pp),
-                           "C_(log_n) != CM.Commit_Sigma(c || v') (batch index 0)")
+            tampered = _tampered(d, qss, accs, pp)
+            for text, fn in tampered:
+                _expect_reject(fn, text)
         out[impl] = {"verify_chain_s": first["verify_chain"], "decide_many_s": first["decide_many"],
                      "verify_chain_warm_s": warm[impl]["verify_chain"],
-                     "decide_many_warm_s": warm[impl]["decide_many"], "tamper_rejected": 2}
+                     "decide_many_warm_s": warm[impl]["decide_many"],
+                     "tamper_rejected": [text for text, _ in tampered]}
     emit({"phase": "chain", "chain": os.path.basename(CHAIN), "d": d, "K": K, "card": smi, **out,
           "launches": {k: v for k, v in launches.items() if not k.startswith("prove")}})
     return paths, warm["sortrows"]
@@ -762,10 +926,12 @@ def main() -> int:
                         "launches": total, "launches_by_path": {p: n[name] for p, n in launches.items()},
                         **{key: res[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                            "bound_by", "library_ms")},
-                        **{key: res[name][key] for key in ("lanes", "k", "split", "at_path_shape",
+                        **{key: res[name][key] for key in ("lanes", "k", "split", "threads", "by_threads", "at_path_shape",
                                                            "by_fill", "by_width", "by_lanes") if key in res[name]}})
     emit({"phase": "padd_widths", "note": "padd launches by width (lanes) on each counted path",
-          **widths})
+          **widths["padd"]})
+    emit({"phase": "bucket_accum_widths", "note": "bucket_accum launches by width (columns) on each counted path",
+          **{p: w for p, w in widths["bucket_accum"].items() if w}})
     emit({"phase": "done", "total_s": round(time.perf_counter() - t0, 3)})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

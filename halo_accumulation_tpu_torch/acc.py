@@ -210,9 +210,10 @@ def verify_chain(D: int, qss: list[list[Instance]], accs: list[Accumulator], pp:
       * per-step challenges and equalities run on the host meanwhile,
       * one copy brings every device verdict back.
 
-    Raises ValueError on any rejection."""
+    Raises ValueError on any rejection, and AssertionError (as the JAX
+    package does) when qss and accs differ in length."""
     if len(qss) != len(accs):
-        raise ValueError("one accumulator per step")
+        raise AssertionError
     last = accs[-1]
     flat, step_slices = [], []
     for qs in qss:

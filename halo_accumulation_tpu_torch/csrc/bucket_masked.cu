@@ -14,85 +14,56 @@
 // ops/cuda_kernels.bucket_split).  With q = ceil(len / T), thread j sums
 // chunk j = [off + j q, min(off + (j + 1) q, end)) from the identity in
 // increasing p, in registers; a dead slot is skipped, since it leaves a sum
-// unchanged.  The T partial sums then meet in a fixed binary tree in shared
-// memory: at level s, partial j += partial j + 2^s for j a multiple of
-// 2^(s+1), skipped where chunk j + 2^s and all after it are empty.  So a
-// dead column adds nothing and stays exactly (0 : 1 : 0), and T = 1 is the
-// one-thread-per-column loop of the first port.  The plain twin in
-// ops/cuda_kernels.py follows the same chunks and the same tree, so the two
-// agree limb for limb.
+// unchanged.  The T partial sums then meet in split.cuh's fixed binary
+// tree, which skips empty chunks, so a dead column adds nothing and stays
+// exactly (0 : 1 : 0), and T = 1 is the one-thread-per-column loop of the
+// first port.  The plain twin in ops/cuda_kernels.py follows the same
+// chunks and the same tree, so the kernel's canonical limbs equal FQ.canon
+// of the twin's.  Each column's chunks are sized by its own len, so a warp
+// runs to the longest chunk of its columns, not to the longest column.
 //
-// Thread layout: the column varies fastest, so the threads of one chunk
-// index read adjacent columns of a slot plane (coalesced).  Blocks are
-// 32 T threads (32 columns) up to T = 8 and 256 threads (16 columns) at
-// T = 16.  Each column's chunks are sized by its own len, so a warp runs to
-// the longest chunk of its columns, not to the longest column.
-//
-// Boundary: int64 planes (packed pairs are < 2^30).  Bound on the H100:
-// integer multiply-add issue of the adds, and residency: at one thread per
-// column the n = 16384 decider's 7936 columns made 248 one-warp blocks for
-// 132 SMs; split 8 ways they make 248 blocks of 8 warps, about one resident
-// wave at 255 registers a thread.  __launch_bounds__(kBlock, 1) lets a
-// thread keep 255 registers: a cap of 128 (two blocks an SM) spilled about
-// 3.5 KB a thread and ran 10 to 24 % slower on the H100 (PERF.md, PR 4).
-// Left for later: the same split for bucket_accum, and the limb work noted
-// in fmul.cu.
+// Boundary: int64 planes (packed pairs are < 2^30), loaded into 8-word field
+// elements and stored as canonical limbs (field.cuh).  Bound on the H100:
+// integer multiply-add issue of the adds, and residency: the kernel holds
+// 154 registers a thread, so a 128-thread block (T = 4) fits three to an
+// SM and a 256-thread one (T >= 8) one; the n = 16384 decider's 7936
+// columns split 4 ways are one wave of 248 blocks, 8 to 15 % faster than
+// 8 ways in two waves.  A cap of 128 registers (__launch_bounds__(256,
+// 2)) sped T = 8 up by 6 to 11 % and decide_many's stacked fill by 2 to
+// 3 %, but lost 8 to 21 % at T = 1 and left the best split of the other
+// fills no faster, so the cap stays off (PERF.md).
 #include <cuda_runtime.h>
-#include "curve.cuh"
+#include "split.cuh"
 
 namespace {
 
-constexpr int kMaxSplit = 16;
-constexpr int kBlock = 256;  // threads of a block at T >= 8
-
+// Slot p of a column as a point: 18 lanes are packed affine x || y (plane
+// k holds limbs 2k and 2k + 1, so x is planes 0 to 8 and y planes 9 to 17,
+// 30 bits each), packed into words once here, with Z = 1; 54 lanes are
+// projective x || y || z limbs.
 __device__ __forceinline__ halo::Pt load_slot(const int64_t* __restrict__ M, int lanes,
                                               int64_t plane, int64_t base) {
   if (lanes != halo::L) {
     return halo::load_pt(M + base, M + halo::L * plane + base, M + 2 * halo::L * plane + base,
                          plane, 0);
   }
-  halo::Pt S;
+  constexpr int kHalf = halo::L / 2;
+  uint32_t cx[kHalf], cy[kHalf];
 #pragma unroll
-  for (int k = 0; k < halo::L; ++k) {
-    const uint32_t v = (uint32_t)M[k * plane + base];
-    const uint32_t lo = v & halo::M15, hi = (v >> 15) & halo::M15;
-    // limbs 2k and 2k + 1 of x || y
-    if (2 * k < halo::L) S.x.v[2 * k] = lo; else S.y.v[2 * k - halo::L] = lo;
-    if (2 * k + 1 < halo::L) S.x.v[2 * k + 1] = hi; else S.y.v[2 * k + 1 - halo::L] = hi;
-    S.z.v[k] = k == 0 ? 1u : 0u;
+  for (int k = 0; k < kHalf; ++k) {
+    cx[k] = (uint32_t)M[k * plane + base];
+    cy[k] = (uint32_t)M[(kHalf + k) * plane + base];
   }
-  return S;
+  return halo::Pt{halo::from_chunks<kHalf, 2 * 15>(cx), halo::from_chunks<kHalf, 2 * 15>(cy),
+                  halo::fe_word(1)};
 }
 
-// A partial sum in shared memory: word w of slot s at part[w][s].
-__device__ __forceinline__ void put_pt(uint32_t (*part)[kBlock / 2], int s, const halo::Pt& P) {
-#pragma unroll
-  for (int i = 0; i < halo::L; ++i) {
-    part[i][s] = P.x.v[i];
-    part[halo::L + i][s] = P.y.v[i];
-    part[2 * halo::L + i][s] = P.z.v[i];
-  }
-}
-
-__device__ __forceinline__ halo::Pt get_pt(uint32_t (*part)[kBlock / 2], int s) {
-  halo::Pt P;
-#pragma unroll
-  for (int i = 0; i < halo::L; ++i) {
-    P.x.v[i] = part[i][s];
-    P.y.v[i] = part[halo::L + i][s];
-    P.z.v[i] = part[2 * halo::L + i][s];
-  }
-  return P;
-}
-
-__global__ void __launch_bounds__(kBlock, 1)
+__global__ void __launch_bounds__(halo::kSplitBlock, 1)
     bucket_masked_kernel(const int64_t* __restrict__ M, const int64_t* __restrict__ meta,
                          int64_t* __restrict__ ox, int64_t* __restrict__ oy,
                          int64_t* __restrict__ oz, int lanes, int64_t padp, int64_t cols,
                          int T) {
-  // slot s of the tree holds the partial of chunk 2 s or 2 s + 1 (odd
-  // multiples of 2^s write at level s) of block column x at s * cb + x
-  __shared__ uint32_t part[3 * halo::L][kBlock / 2];
+  __shared__ halo::SplitBuf part;
   const int cb = blockDim.x / T;  // columns per block
   const int x = threadIdx.x % cb, j = threadIdx.x / cb;
   const int64_t col = (int64_t)blockIdx.x * cb + x;
@@ -110,13 +81,7 @@ __global__ void __launch_bounds__(kBlock, 1)
   const int64_t stop = start + q < end ? start + q : end;
   halo::Pt acc = halo::identity();
   for (int64_t p = start; p < stop; ++p) acc = halo::padd(acc, load_slot(M, lanes, plane, p * cols + col));
-  for (int h = 1; h < T; h <<= 1) {
-    __syncthreads();  // the last level's reads are done
-    if ((j & (2 * h - 1)) == h) put_pt(part, (j >> 1) * cb + x, acc);
-    __syncthreads();
-    if ((j & (2 * h - 1)) == 0 && off + (j + h) * q < end)
-      acc = halo::padd(acc, get_pt(part, ((j + h) >> 1) * cb + x));
-  }
+  acc = halo::combine_split(acc, part, x, j, cb, T, [&](int k) { return off + k * q < end; });
   if (j == 0 && live) halo::store_pt(ox, oy, oz, cols, col, acc);
 }
 
@@ -125,10 +90,10 @@ __global__ void __launch_bounds__(kBlock, 1)
 extern "C" int halo_bucket_masked(const void* M, const void* meta, void* ox, void* oy,
                                   void* oz, int lanes, int64_t padp, int64_t cols, int T,
                                   void* stream) {
-  if (T < 1 || T > kMaxSplit || (T & (T - 1)) != 0 || (lanes != halo::L && lanes != 3 * halo::L))
+  if (!halo::split_ok(T) || (lanes != halo::L && lanes != 3 * halo::L))
     return (int)cudaErrorInvalidValue;
   if (cols > 0) {
-    const int threads = T >= 8 ? kBlock : 32 * T;
+    const int threads = halo::split_block(T);
     const int64_t cb = threads / T;
     const unsigned blocks = (unsigned)((cols + cb - 1) / cb);
     bucket_masked_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(

@@ -1,10 +1,11 @@
-// Complete projective Pallas-curve formulas on register limbs (a = 0, b = 5).
+// Complete projective Pallas-curve formulas on register words (a = 0, b = 5).
 //
 // Line-for-line the list-form formula of halo_accumulation_tpu/ops/limbs.py
 // (padd_list: RCB16 algorithm 7 with b3 = 15; pdbl.cu splits pdbl_list,
 // algorithm 9, across four threads), which the torch twins in
 // ops/cuda_kernels.py compute with the same field operations on the same
-// operands, so kernel and twin agree limb for limb.
+// operands: every coordinate is the twin's value mod q, so the canonical
+// limbs a kernel stores equal FQ.canon of the twin's.
 // Complete formulas have no branches: P == Q, P == -Q and the identity
 // (0 : 1 : 0) take the same path.
 #pragma once
@@ -16,16 +17,7 @@ struct Pt {
   Fe x, y, z;
 };
 
-__device__ __forceinline__ Pt identity() {
-  Pt P;
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-    P.x.v[i] = 0;
-    P.y.v[i] = i == 0 ? 1u : 0u;
-    P.z.v[i] = 0;
-  }
-  return P;
-}
+__device__ __forceinline__ Pt identity() { return Pt{fe_word(0), fe_word(1), fe_word(0)}; }
 
 __device__ __forceinline__ Pt padd(const Pt& P, const Pt& Q) {
   const Fe t0 = mul(P.x, Q.x);

@@ -6,11 +6,12 @@
 // every curve.padd goes here: the msm_rows tables and tree sums, the suffix
 // weighting's shifted adds, the Horner window combine and the URS sums.
 //
-// Boundary: int64 limb planes (limbs fit in 31 bits; uint32 in registers).
-// An add is 12 multiplies, 2 small multiplies, 5 subs and a few adds.  Most
-// launches are narrow (1 to 2 lanes in the prover's Horner combines, 10 to
-// 30 in the verifiers', the row MSMs at their batch width), where the time
-// is the serial latency of one lane's chain, not the card's multiply rate.
+// Boundary: int64 limb planes, loaded into 8-word field elements and stored
+// as canonical limbs (field.cuh).  An add is 12 multiplies, 2 small
+// multiplies, 5 subs and a few adds.  Most launches are narrow (1 to 2
+// lanes in the prover's Horner combines, 10 to 30 in the verifiers', the
+// row MSMs at their batch width), where the time is the serial latency of
+// one lane's chain, not the card's multiply rate.
 // The 12 multiplies form two levels of 6 independent ones (x1 x2, y1 y2,
 // z1 z2 and the three cross sums; then t3 t1b, t4 wb, t1b z3s, wb t0b,
 // z3s t4, t0b t3), so six threads of one warp share a lane (five lanes a
@@ -26,17 +27,15 @@
 //   output   threads 0, 1, 2 each form and store one coordinate.
 // Products and middle values meet in shared memory under __syncwarp; a
 // lane's threads never straddle a warp.  The multiply depth of an add falls
-// from 12 to 2.  On the H100 the split add takes 11.1 to 12.5 us a launch
-// at 1 to 30 lanes against 41.7 us at one thread per lane, at 80 registers
-// and no spills; eight threads a lane (four lanes a warp) and the middle
-// run by every thread alike were slower at every width.  One thread per
-// lane (255 registers, 72 bytes of spills) was faster only from 32,768 to
-// 65,536 lanes, widths no path launches, and slower at decide_many's
-// 79,360, so it was removed (PERF.md, PR 5).  Every product, small
-// multiply, sub and add is the same field operation on the same operands
-// as in the plain twin, so the limbs equal the twin's.
-// Left for later: the limb work noted in fmul.cu.
+// from 12 to 2: on the H100 the split add takes 6.6 to 7.3 us a launch at 1
+// to 30 lanes.  Eight threads a lane (four lanes a warp), the middle
+// run by every thread alike, and one thread per lane (faster only at widths
+// no path launches) were measured and removed (PERF.md).  Every
+// product, small multiply, sub and add is the same field operation on the
+// same operands as in the plain twin, so the stored limbs equal the
+// canonical form of the twin's.
 #include <cuda_runtime.h>
+#define HALO_INLINE_FIELD_OPS  // one or two of each field op a thread: inline them
 #include "curve.cuh"
 
 namespace {
@@ -49,18 +48,18 @@ constexpr int kWarps = 4;                // warps per block
 constexpr int kLanes = kWarps * kPerWarp;
 constexpr unsigned kMask = 0xFFFFFFFFu >> (32 - kGroup * kPerWarp);  // the threads of whole lanes
 
-// Six field elements per lane of the block: buf[m][limb][lane].
-using Buf = uint32_t[kGroup][halo::L][kLanes];
+// Six field elements per lane of the block: buf[m][word][lane].
+using Buf = uint32_t[kGroup][halo::NW][kLanes];
 
 __device__ __forceinline__ void put_fe(Buf& buf, int m, int li, const Fe& a) {
 #pragma unroll
-  for (int i = 0; i < halo::L; ++i) buf[m][i][li] = a.v[i];
+  for (int i = 0; i < halo::NW; ++i) buf[m][i][li] = a.v[i];
 }
 
 __device__ __forceinline__ Fe get_fe(const Buf& buf, int m, int li) {
   Fe a;
 #pragma unroll
-  for (int i = 0; i < halo::L; ++i) a.v[i] = buf[m][i][li];
+  for (int i = 0; i < halo::NW; ++i) a.v[i] = buf[m][i][li];
   return a;
 }
 

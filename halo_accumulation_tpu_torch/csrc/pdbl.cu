@@ -7,22 +7,24 @@
 // doublings run in registers, with one load and one store per lane, so a
 // window costs one launch instead of k.
 //
-// Boundary: int64 limb planes (limbs fit in 31 bits; uint32 in registers).
-// A double is 8 multiplies, 3 small multiplies, a sub and 3 adds.  The
-// paths run it narrow (the Horner combine at 1 to 30 lanes, the row MSMs at
-// their batch width), where the time is the serial latency of one thread.
+// Boundary: int64 limb planes, loaded into 8-word field elements and stored
+// as canonical limbs (field.cuh).  A double is 8 multiplies, 3 small
+// multiplies, a sub and 3 adds.  The paths run it narrow (the Horner
+// combine at 1 to 30 lanes, the row MSMs at their batch width), where the
+// time is the serial latency of one thread.
 // The 8 multiplies of a double form two levels of 4 independent ones (y y,
 // y z, z z, x y; then t2 z38, t1 z38, t0a y3s, t0a xy), so four threads of
 // one warp share a lane: each runs one whole halo::mul per level on its own
-// operands and the four 18-limb products meet in shared memory.  The small
+// operands and the four 8-word products meet in shared memory.  The small
 // multiplies, the sub and the adds are run by all four threads alike (no
 // divergence).  The multiply depth of a double falls from 8 to 2: on the
-// H100 a double took 9 to 10 us at 1 to 32 lanes against 29 us at one
-// thread per lane, which won only from 32,768 lanes, a width no path
-// launches (PERF.md, PR 4).  Every multiply is the same halo::mul on the
-// same operands as in the twin, so the limbs equal the twin's.
-// Left for later: the limb work noted in fmul.cu.
+// H100 a double takes 2.1 to 2.2 us at 1 to 1,024 lanes; one thread
+// per lane, faster only from 32,768 lanes, a width no path launches, was
+// measured and removed (PERF.md).  Every multiply is the same
+// halo::mul on the same operands as in the twin, so the stored limbs equal
+// the canonical form of the twin's.
 #include <cuda_runtime.h>
+#define HALO_INLINE_FIELD_OPS  // one or two of each field op a thread: inline them
 #include "curve.cuh"
 
 namespace {
@@ -35,23 +37,23 @@ __device__ __forceinline__ halo::Fe pick(int r, const halo::Fe& a0, const halo::
                                          const halo::Fe& a2, const halo::Fe& a3) {
   halo::Fe o;
 #pragma unroll
-  for (int i = 0; i < halo::L; ++i)
+  for (int i = 0; i < halo::NW; ++i)
     o.v[i] = r == 0 ? a0.v[i] : (r == 1 ? a1.v[i] : (r == 2 ? a2.v[i] : a3.v[i]));
   return o;
 }
 
-// The four products of one level: buf[m][limb][lane of the block].
-using Buf = uint32_t[kGroup][halo::L][kLanes];
+// The four products of one level: buf[m][word][lane of the block].
+using Buf = uint32_t[kGroup][halo::NW][kLanes];
 
 __device__ __forceinline__ void put_fe(Buf& buf, int m, int li, const halo::Fe& a) {
 #pragma unroll
-  for (int i = 0; i < halo::L; ++i) buf[m][i][li] = a.v[i];
+  for (int i = 0; i < halo::NW; ++i) buf[m][i][li] = a.v[i];
 }
 
 __device__ __forceinline__ halo::Fe get_fe(const Buf& buf, int m, int li) {
   halo::Fe a;
 #pragma unroll
-  for (int i = 0; i < halo::L; ++i) a.v[i] = buf[m][i][li];
+  for (int i = 0; i < halo::NW; ++i) a.v[i] = buf[m][i][li];
   return a;
 }
 

@@ -10,13 +10,15 @@ every Pallas kernel of `halo_accumulation_tpu/ops/pallas_kernels.py`:
   bucket_masked  <- _bucket_kernel_masked  masked bucket reduction, sort-payload MSM
                                            (a column split across T threads)
   bucket_accum   <- _bucket_kernel_aff /   pad-axis bucket sums, row-permutation MSM
-                    _bucket_kernel_proj
+                    _bucket_kernel_proj    (a column split across T threads)
 
-Each has a plain PyTorch twin here that computes the same limbs in the same
-operation order (the CUDA device functions mirror ops/limbs.py's list form;
-the twins run the same math stacked over a batch axis), so the kernel and
-its twin agree exactly.  A wrapper takes the twin for tensors on the CPU and
-launches the kernel for CUDA tensors; any other device raises.  Each launch
+Each has a plain PyTorch twin here that runs the same field operations in
+the same order (the twins run ops/limbs.py's list form stacked over a batch
+axis, in the JAX package's lazy 15-bit limbs).  The kernels compute on
+8 x 32-bit words (csrc/field.cuh) and store canonical limbs, so a kernel's
+output equals FQ.canon of its twin's, limb for limb.  A wrapper takes the
+twin for tensors on the CPU and launches the kernel for CUDA tensors; any
+other device raises.  Each launch
 adds one to its kernel's `launches` count and to its count at that width
 (`widths`), and only a launch does: a call of width 0 has nothing to compute
 and launches nothing.
@@ -40,10 +42,25 @@ B3 = 15  # 3 * b for y^2 = x^3 + 5
 # rows_from_points): affine x || y || Z-indicator || pad, projective
 # x || y || z || pad.
 AFFINE_LANES, PROJ_LANES = 40, 64
-# The masked bucket reduction's split (bucket_split): threads to aim for, about
-# one resident wave of the H100 at 255 registers a thread (132 SMs x 256 =
-# 33,792); the most threads per column; the fewest pad slots per chunk.
-BUCKET_FILL_THREADS, BUCKET_MAX_SPLIT, BUCKET_MIN_CHUNK = 1 << 15, 16, 8
+# The bucket kernels' split (bucket_split): threads to aim for; the most
+# threads per column; the fewest pad slots per chunk.  At the masked
+# kernel's 154 registers a thread, T = 4 at the n = 16384 decider's 7,936
+# columns (blocks of 128 threads, three an SM) beat T = 8 (blocks of 256,
+# one an SM, two waves) by 8 to 15 %, and T = 2 at the prover's 15,872
+# columns beat T = 4 by 11 % on the H100 (PERF.md): so 2^14 threads.
+BUCKET_FILL_THREADS, BUCKET_MAX_SPLIT, BUCKET_MIN_CHUNK = 1 << 14, 16, 8
+# bucket_accum adds every slot of a column, so a split pays while it
+# shortens a column's chain of adds (q = pad / T, then log2 T tree levels):
+# down to chunks of two slots.  At the n = 16384 rowperm MSM's folded top
+# window (48 slots, 1,024 columns) T = 16 took 24 to 29 % less time than
+# bucket_split's T = 4 (chunks of 8) on the H100; at the main group (128
+# slots, 7,936 columns) the fill target keeps T = 4, the best of the sweep
+# (PERF.md).
+ACCUM_MIN_CHUNK = 2
+# fmul's threads per block (one lane each); chip_smoke.py times 64, 128 and
+# 256 at 65,536 lanes: within 1 % of each other, 64 the fastest on average
+# (PERF.md).
+FMUL_THREADS = 64
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
 
@@ -70,13 +87,13 @@ class Kernel:
 KERNELS = {
     k.name: k
     for k in (
-        Kernel("fmul", "halo_accumulation_tpu/ops/pallas_kernels.py:65", [_VP] * 3 + [_I64, _VP]),
+        Kernel("fmul", "halo_accumulation_tpu/ops/pallas_kernels.py:65", [_VP] * 3 + [_I64, _I32, _VP]),
         Kernel("padd", "halo_accumulation_tpu/ops/pallas_kernels.py:69", [_VP] * 9 + [_I64, _VP]),
         Kernel("pdbl", "halo_accumulation_tpu/ops/pallas_kernels.py:346", [_VP] * 6 + [_I64, _I32, _VP]),
         Kernel("bucket_masked", "halo_accumulation_tpu/ops/pallas_kernels.py:262",
                [_VP] * 5 + [_I32, _I64, _I64, _I32, _VP]),
         Kernel("bucket_accum", "halo_accumulation_tpu/ops/pallas_kernels.py:170",
-               [_VP] * 5 + [_I32, _I64, _I64, _VP]),
+               [_VP] * 5 + [_I32, _I64, _I64, _I32, _VP]),
     )
 }
 
@@ -214,19 +231,25 @@ def _identity_cols(n: int, device):
     return x, y, x.clone()
 
 
-def bucket_split(padp: int, cols: int) -> int:
-    """Threads per column T of the masked bucket reduction, from the shapes
-    alone (never from the device, so that kernel and twin follow the same
+def bucket_split(padp: int, cols: int, min_chunk: int = BUCKET_MIN_CHUNK) -> int:
+    """Threads per column T of a bucket kernel, from the shapes alone
+    (never from the device, so that kernel and twin follow the same
     chunks): the smallest power of two with cols * T >= BUCKET_FILL_THREADS,
     but at least 2, at most BUCKET_MAX_SPLIT, and doubled only while a chunk
-    of the pad, padp / T slots, still spans at least BUCKET_MIN_CHUNK.  Two
-    halves pay even on a full card: a warp waits for the longest chunk of
-    its columns, and the last wave is fuller (PERF.md)."""
+    of the pad, padp / T slots, still spans at least min_chunk.  Two halves
+    pay even on a full card: a warp waits for the longest chunk of its
+    columns, and the last wave is fuller (PERF.md)."""
     T = 1
-    while (T < BUCKET_MAX_SPLIT and padp >= 2 * T * BUCKET_MIN_CHUNK
+    while (T < BUCKET_MAX_SPLIT and padp >= 2 * T * min_chunk
            and (T == 1 or cols * T < BUCKET_FILL_THREADS)):
         T *= 2
     return T
+
+
+def accum_split(pad: int, cols: int) -> int:
+    """Threads per column T of bucket_accum: bucket_split with chunks down
+    to ACCUM_MIN_CHUNK slots."""
+    return bucket_split(pad, cols, ACCUM_MIN_CHUNK)
 
 
 def slot_points(sl, lanes: int):
@@ -245,10 +268,9 @@ def bucket_masked_plain(M, meta, T: int):
     min(off + len, padp) of M (lanes, padp, cols), split as the kernel
     splits it.  With q = ceil((end - off) / T), chunk j = [off + j q,
     min(off + (j + 1) q, end)) is summed from the identity in increasing p
-    (dead slots are skipped); then the T partials meet in a binary tree: at
-    level s, partial j += partial j + 2^s for j a multiple of 2^(s+1), where
-    chunk j + 2^s is not empty.  A dead column stays exactly (0 : 1 : 0);
-    T = 1 is one ordered sum per column."""
+    (dead slots are skipped); then the T partials meet in _combine_split's
+    tree.  A dead column stays exactly (0 : 1 : 0); T = 1 is one ordered
+    sum per column."""
     lanes, padp, cols = M.shape
     dev = M.device
     acc = list(_identity_cols(T * cols, dev))
@@ -266,11 +288,21 @@ def bucket_masked_plain(M, meta, T: int):
         S = slot_points(M[:, first[v] + i, col[v]], lanes)
         for a, s in zip(acc, padd_plain(tuple(a[:, v] for a in acc), S)):
             a[:, v] = s
+    return _combine_split(acc, start < end)
+
+
+def _combine_split(acc, nonempty):
+    """The T partial sums of each column, acc (x, y, z) each (18, T * cols)
+    chunk-major, combined as csrc/split.cuh combines them: at level s,
+    partial j += partial j + 2^s for j a multiple of 2^(s+1), where chunk
+    j + 2^s of that column is not empty (nonempty: (T, cols) bool).
+    -> each column's sum, (x, y, z) each (18, cols)."""
+    T, cols = nonempty.shape
     tree = [a.reshape(L, T, cols) for a in acc]
     h = 1
     while h < T:
-        left = torch.arange(0, T, 2 * h, device=dev)
-        jj, cc = (start[left + h] < end).nonzero(as_tuple=True)
+        left = torch.arange(0, T, 2 * h, device=nonempty.device)
+        jj, cc = nonempty[left + h].nonzero(as_tuple=True)
         jl, jr = left[jj], left[jj] + h
         for a, s in zip(tree, padd_plain(tuple(a[:, jl, cc] for a in tree), tuple(a[:, jr, cc] for a in tree))):
             a[:, jl, cc] = s
@@ -289,16 +321,29 @@ def decode_rows(t):
     return x, y, t[2 * L : 3 * L]
 
 
-def bucket_accum_plain(rows, src):
+def bucket_accum_plain(rows, src, T: int = 1):
     """Per column, the complete-add sum of rows[src[p, col]] over every slot
-    p = 0 .. pad - 1, from the identity (sentinel slots included).  rows
-    (nrows, 40 or 64), src (pad, cols) -> (x, y, z) each (18, cols)."""
+    p = 0 .. pad - 1 (sentinel slots included), split as the kernel splits
+    it: with q = ceil(pad / T), chunk j = [j q, min((j + 1) q, pad)) is
+    summed from the identity in increasing p, then the T partials meet in
+    _combine_split's tree.  T = 1 is one ordered sum per column, the Pallas
+    kernels' order.  rows (nrows, 40 or 64), src (pad, cols) -> (x, y, z)
+    each (18, cols)."""
     pad, cols = src.shape
     table = rows.T.contiguous()
-    acc = _identity_cols(cols, rows.device)
-    for p in range(pad):
-        acc = padd_plain(acc, decode_rows(table[:, src[p]]))
-    return acc
+    q = -(-pad // T)
+    acc = _identity_cols(T * cols, rows.device)
+    for i in range(q):
+        js = [j for j in range(T) if j * q + i < pad]  # chunks that still hold a slot
+        S = decode_rows(table[:, src[[j * q + i for j in js]].reshape(-1)])
+        if len(js) == T:
+            acc = padd_plain(acc, S)
+        else:
+            v = slice(0, len(js) * cols)  # chunks are contiguous: the live ones come first
+            for a, s in zip(acc, padd_plain(tuple(a[:, v] for a in acc), S)):
+                a[:, v] = s
+    nonempty = torch.arange(T, device=rows.device)[:, None] * q < pad
+    return _combine_split(acc, nonempty.expand(T, cols))
 
 
 # -- wrappers -------------------------------------------------------------------
@@ -340,15 +385,18 @@ def _on_cpu(*ts) -> bool:
     raise ValueError(f"kernel inputs on {sorted(devs)}: expected all CPU or all CUDA")
 
 
-def fmul(a, b):
-    """Fq multiply of (18, n) limb tensors."""
+def fmul(a, b, threads: int = FMUL_THREADS):
+    """Fq multiply of (18, n) limb tensors; on the card in blocks of
+    `threads` (a multiple of 32, at most 1024)."""
+    if threads % 32 or not 32 <= threads <= 1024:
+        raise ValueError(f"fmul threads {threads}: expected a multiple of 32 from 32 to 1024")
     if _on_cpu(a, b):
         return fmul_plain(a, b)
     a, b = a.contiguous(), b.contiguous()
     n = _check_planes(a, b)
     out = torch.empty_like(a)
     if n:
-        _launch("fmul", n, a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
+        _launch("fmul", n, a.data_ptr(), b.data_ptr(), out.data_ptr(), n, threads)
     return out
 
 
@@ -404,23 +452,27 @@ def bucket_masked(M, meta, T: int | None = None):
     return tuple(outs)
 
 
-def bucket_accum(rows, src):
+def bucket_accum(rows, src, T: int | None = None):
     """Row-permutation bucket sums: rows (nrows, 40 or 64) int64 table,
     src (pad, cols) int64 row indices in [0, nrows) -> (x, y, z) each
-    (18, cols).  The kernel gathers its rows itself; the indices are
-    trusted (the MSM builds them)."""
-    if _on_cpu(rows, src):
-        return bucket_accum_plain(rows, src)
-    if rows.dim() != 2 or rows.shape[1] not in (AFFINE_LANES, PROJ_LANES):
-        raise ValueError(f"bucket_accum takes (nrows, 40 or 64) rows, got {tuple(rows.shape)}")
+    (18, cols).  T: threads per column (default accum_split(pad, cols)),
+    for the kernel and the twin alike.  The kernel gathers its rows itself;
+    the indices are trusted (the MSM builds them)."""
     if src.dim() != 2:
         raise ValueError(f"bucket_accum takes (pad, cols) indices, got {tuple(src.shape)}")
+    pad, cols = src.shape
+    T = accum_split(pad, cols) if T is None else T
+    if T not in (1, 2, 4, 8, 16):
+        raise ValueError(f"bucket_accum splits a column 1, 2, 4, 8 or 16 ways, got {T}")
+    if _on_cpu(rows, src):
+        return bucket_accum_plain(rows, src, T)
+    if rows.dim() != 2 or rows.shape[1] not in (AFFINE_LANES, PROJ_LANES):
+        raise ValueError(f"bucket_accum takes (nrows, 40 or 64) rows, got {tuple(rows.shape)}")
     if rows.dtype != I64 or src.dtype != I64:
         raise TypeError("bucket_accum takes int64 rows and indices")
     rows, src = rows.contiguous(), src.contiguous()
-    pad, cols = src.shape
     outs = [torch.empty((L, cols), dtype=I64, device=rows.device) for _ in range(3)]
     if cols:
         _launch("bucket_accum", cols, rows.data_ptr(), src.data_ptr(), *(o.data_ptr() for o in outs),
-                rows.shape[1], pad, cols)
+                rows.shape[1], pad, cols, T)
     return tuple(outs)

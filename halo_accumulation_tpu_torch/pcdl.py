@@ -125,9 +125,11 @@ def _pad_pow2(coeffs, n: int):
 
 
 def _check_degree(d: int, pp: pp_mod.PublicParams) -> int:
+    """n = d + 1, which must be a power of two no larger than the URS: one
+    bare assert, as the JAX package's open_ and device commits."""
     n = d + 1
     if n & (n - 1) or n > pp.n:
-        raise ValueError("d + 1 must be a power of two no larger than the URS")
+        raise AssertionError
     return n
 
 
@@ -142,7 +144,11 @@ def commit(coeffs, d: int, w: int | None, pp: pp_mod.PublicParams) -> Point:
     """Pedersen commitment of a coefficient vector over G[0..d+1], plus w*S
     when hiding.  coeffs: (18, k) Fr tensor or a list of ints (k <= d + 1);
     up to 8 listed coefficients commit on the host."""
-    n = _check_degree(d, pp)
+    n = d + 1  # the JAX package's commit asserts each check with its text
+    if n & (n - 1):
+        raise AssertionError("d+1 must be a power of two")
+    if n > pp.n:
+        raise AssertionError("degree exceeds URS size")
     if isinstance(coeffs, list):
         if len(coeffs) <= 8:
             C = host_msm(coeffs, pp.gs_host(len(coeffs)))

@@ -118,10 +118,14 @@ class PublicParams:
         return self._gs_host[:k]
 
 
+def _check_size(n: int) -> None:
+    if n & (n - 1):
+        raise AssertionError("URS size must be a power of two")
+
+
 def generate(n: int, device=None) -> PublicParams:
     """Compute the n-generator URS on `device` (the card by default)."""
-    if n & (n - 1):
-        raise ValueError("URS size must be a power of two")
+    _check_size(n)
     dev = runtime.device(device)
     tables = _window_tables(dev)
     # the 8-bit windows of a little-endian scalar are its bytes
@@ -130,7 +134,7 @@ def generate(n: int, device=None) -> PublicParams:
     P = _fixed_base_mul_batch(tables, torch.from_numpy(dig).to(dev))
     x, y, inf = cv.to_affine(P)
     if bool(inf.any()):
-        raise RuntimeError("URS generator hashed to the identity")
+        raise AssertionError("URS generator hashed to identity")
     s_pt, h_pt = [(a, b) for a, b in zip(FQ.to_ints(x[:, :2]), FQ.to_ints(y[:, :2]))]
     return PublicParams(n, x[:, 2:].contiguous(), y[:, 2:].contiguous(), s_pt, h_pt)
 
@@ -142,6 +146,7 @@ def get_pp(n: int, device=None) -> PublicParams:
     """The n-generator URS on `device` (the card by default; "cpu" only when
     named), generated once per process and sliced from the largest one
     held."""
+    _check_size(n)
     dev = runtime.device(device)
     key = (n, str(dev))
     if key in _pp_cache:

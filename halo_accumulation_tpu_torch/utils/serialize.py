@@ -36,9 +36,10 @@ def ser_point(P) -> bytes:
 
 
 def deser_point(b: bytes):
-    """Inverse of ser_point: None or (x, y).  Raises ValueError off-curve."""
+    """Inverse of ser_point: None or (x, y).  Raises ValueError off-curve
+    and, as the JAX package asserts, AssertionError unless b is 33 bytes."""
     if len(b) != POINT_BYTES:
-        raise ValueError("point encoding must be 33 bytes")
+        raise AssertionError
     flags = b[32] & 0xC0
     if flags & SW_INFINITY:
         return None

@@ -16,7 +16,9 @@ import torch
 
 from halo_accumulation_tpu_torch import acc as acc_mod, chain, fields as F, pp as pp_mod
 from halo_accumulation_tpu_torch.ops import cuda_kernels as ck, curve as cv, msm as msm_mod
-from halo_accumulation_tpu_torch.ops.field import FQ, FR, L
+from halo_accumulation_tpu_torch.ops.field import FQ, FR, L, limb_array_to_ints
+
+import chip_smoke
 
 pytestmark = pytest.mark.cuda
 
@@ -26,6 +28,13 @@ PADD_WIDTHS = (1, 2, 5, 10, 30, 7936, 65536, 79360)  # padd widths held to the t
 # the kernels each path must launch, by MSM setting
 MUST_LAUNCH = {"sortrows": {"fmul", "padd", "pdbl", "bucket_masked"},
                "rowperm": {"fmul", "padd", "pdbl", "bucket_accum"}}
+
+
+def same_canonical(got, want) -> bool:
+    """The kernel's coordinates are canonical (FQ.canon leaves them as they
+    are) and equal FQ.canon of the twin's, limb for limb: the kernels'
+    8-word arithmetic stores canonical limbs, the twins keep lazy ones."""
+    return all(torch.equal(FQ.canon(g), g) and torch.equal(g.cpu(), FQ.canon(w).cpu()) for g, w in zip(got, want))
 
 
 @pytest.fixture
@@ -72,7 +81,28 @@ def test_kernel_matches_twin(cuda, rng, op):
         got, want = ck.pdbl(Pc), ck.pdbl_plain(P)
     torch.cuda.synchronize()
     assert ck.launch_counts()[op] == before + 1
-    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert same_canonical(got, want)
+
+
+def test_fmul_edge_lanes(cuda):
+    """fmul on every pair of chip_smoke's edge lanes (0, 1, q - 1, q,
+    2^255 - 1, the boundary's lazy maxima, ...) equals the canonical twin
+    and the int oracle."""
+    edges = chip_smoke.fmul_edge_limbs()
+    a = torch.tensor([e for e in edges for _ in edges], dtype=torch.int64).T.contiguous()
+    b = torch.tensor([e for _ in edges for e in edges], dtype=torch.int64).T.contiguous()
+    got = ck.fmul(a.to(cuda), b.to(cuda))
+    assert same_canonical([got], [ck.fmul_plain(a, b)])
+    assert FQ.to_ints(got) == [x * y % F.Q for x, y in zip(limb_array_to_ints(a.numpy()), limb_array_to_ints(b.numpy()))]
+
+
+@pytest.mark.parametrize("threads", chip_smoke.FMUL_THREADS_TIMED)
+def test_fmul_block_sizes(cuda, rng, threads):
+    """fmul at every block size that chip_smoke times, on a width that is
+    no multiple of the block, equals the canonical twin."""
+    P, Q = _points(rng, 1000)
+    got = ck.fmul(P[0].to(cuda), Q[0].to(cuda), threads)
+    assert same_canonical([got], [ck.fmul_plain(P[0], Q[0])])
 
 
 @pytest.fixture(scope="module")
@@ -86,7 +116,7 @@ def padd_lanes():
 
 @pytest.mark.parametrize("n", PADD_WIDTHS)
 def test_padd_layouts_match_twin(padd_lanes, n):
-    """The six-threads-per-lane padd equals the twin limb for limb at the
+    """The six-threads-per-lane padd equals the canonical twin at the
     paths' widths, the edge lanes first; each launch counts once, at its
     width."""
     P, Q = (tuple(c[:, :n] for c in X) for X in padd_lanes)
@@ -95,16 +125,16 @@ def test_padd_layouts_match_twin(padd_lanes, n):
     got = ck.padd(P, Q)
     torch.cuda.synchronize()
     assert ck.launch_counts()["padd"] == 1 and ck.launch_widths()["padd"] == {n: 1}
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert same_canonical(got, want)
 
 
 @pytest.mark.parametrize("shape", [(40, 512), (136, 4096)], ids=["pad40", "pad136"])
 @pytest.mark.parametrize("split", [1, None, 16], ids=["one", "chosen", "sixteen"])
 @pytest.mark.parametrize("lanes", [18, 54], ids=["affine18", "proj54"])
 def test_bucket_masked_matches_twin(cuda, rng, lanes, split, shape):
-    """At one thread per column, at the split bucket_split chooses (4 and
-    8 threads per column at these shapes) and at the widest split, the
-    kernel equals the twin run with the same split, limb for limb."""
+    """At one thread per column, at the split bucket_split chooses (4
+    threads per column at these shapes) and at the widest split, the
+    kernel equals the canonical twin run with the same split."""
     P, _ = _points(rng, 64)
     if lanes == L:
         x, y, _ = cv.to_affine(cv.PointVec(*P))
@@ -121,21 +151,21 @@ def test_bucket_masked_matches_twin(cuda, rng, lanes, split, shape):
     got = ck.bucket_masked(M, meta, T)
     torch.cuda.synchronize()
     assert ck.launch_counts()["bucket_masked"] == before + 1
-    assert all(torch.equal(g, w) for g, w in zip(got, ck.bucket_masked_plain(M, meta, T)))
+    assert same_canonical(got, ck.bucket_masked_plain(M, meta, T))
 
 
 @pytest.mark.parametrize("n", [1, 3, 32, 4096])
 @pytest.mark.parametrize("k", [1, 4, 8])
 def test_pdbl_k_matches_twin(cuda, rng, k, n):
     """k doublings in one launch (four threads per lane, a partial last
-    block at 3 lanes) equal k doublings of the twin."""
+    block at 3 lanes) equal k doublings of the twin, canonically."""
     P, _ = _points(rng, n)
     Pc = tuple(c.to(cuda) for c in P)
     before = ck.launch_counts()["pdbl"]
     got = ck.pdbl(Pc, k)
     torch.cuda.synchronize()
     assert ck.launch_counts()["pdbl"] == before + 1
-    assert all(torch.equal(g, w) for g, w in zip(got, ck.pdbl_plain(Pc, k)))
+    assert same_canonical(got, ck.pdbl_plain(Pc, k))
 
 
 def test_sortrows_msm_launches_one_pdbl_per_window(cuda, monkeypatch, rng):
@@ -154,10 +184,14 @@ def test_sortrows_msm_launches_one_pdbl_per_window(cuda, monkeypatch, rng):
     assert cv.to_host(pt) == [F.p_msm(scalars, G)]
 
 
+@pytest.mark.parametrize("split", [1, None, 16], ids=["one", "chosen", "sixteen"])
 @pytest.mark.parametrize("lanes", [40, 64])
-def test_bucket_accum_matches_twin(cuda, rng, lanes):
+def test_bucket_accum_matches_twin(cuda, rng, lanes, split):
     """Gathered row sums at a small shape: URS rows (projective ones with
-    lazy limbs), about 5 % sentinel slots."""
+    lazy limbs), about 5 % sentinel slots.  At one thread per column, at
+    the split accum_split chooses (8 at this shape) and at sixteen (24
+    slots: chunks of 2, the last four empty), the kernel equals the
+    canonical twin run with the same split."""
     n, pad, cols = 64, 24, 512
     pp = pp_mod.get_pp(n, "cpu")
     if lanes == 40:
@@ -168,12 +202,12 @@ def test_bucket_accum_matches_twin(cuda, rng, lanes):
     src = rng.integers(0, n, (pad, cols))
     src[rng.random((pad, cols)) < 0.05] = n
     src = torch.from_numpy(src)
+    T = ck.accum_split(pad, cols) if split is None else split
     before = ck.launch_counts()["bucket_accum"]
-    got = ck.bucket_accum(rows.to(cuda), src.to(cuda))
+    got = ck.bucket_accum(rows.to(cuda), src.to(cuda), T)
     torch.cuda.synchronize()
     assert ck.launch_counts()["bucket_accum"] == before + 1
-    want = ck.bucket_accum_plain(rows, src)
-    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert same_canonical(got, ck.bucket_accum_plain(rows, src, T))
 
 
 @pytest.mark.parametrize("impl", ["sortrows", "rowperm"])

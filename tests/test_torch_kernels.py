@@ -199,16 +199,16 @@ def test_bucket_masked_split_of_one_is_first_port_order(rng, lanes):
 
 def test_bucket_split_from_shapes_only(rng):
     """The split is a function of (padp, cols) alone: the n = 16384
-    verify_chain decider's main group takes 8 threads per column, the
-    prover's dual round 4, decide_many's ten stacked MSMs 2, a pad too
+    verify_chain decider's main group takes 4 threads per column, the
+    prover's dual round 2, decide_many's ten stacked MSMs 2, a pad too
     short for two chunks of 8 slots 1; the wrapper passes it to the twin
     whatever the lanes and the fill."""
-    assert ck.bucket_split(136, 31 * 256) == 8
-    assert ck.bucket_split(104, 2 * 31 * 256) == 4
+    assert ck.bucket_split(136, 31 * 256) == 4
+    assert ck.bucket_split(104, 2 * 31 * 256) == 2
     assert ck.bucket_split(136, 10 * 31 * 256) == 2
     assert ck.bucket_split(24, 40) == 2
     assert ck.bucket_split(8, 40) == 1
-    assert ck.bucket_split(136, 4096) == 8 and ck.bucket_split(1 << 10, 1) == 16
+    assert ck.bucket_split(136, 4096) == 4 and ck.bucket_split(1 << 10, 1) == 16
     for lanes in (18, 54):
         M, meta, _ = _bucket_case(rng, lanes)
         T = ck.bucket_split(*M.shape[1:])
@@ -303,6 +303,58 @@ def test_bucket_accum_twin_matches_pallas_body(rng, lanes):
             s = F.p_add(s, pts[src[p, c]] if src[p, c] < len(pts) else None)
         want.append(s)
     assert cv.to_host(cv.PointVec(*got)) == want
+
+
+def _bucket_accum_case(rng, lanes, pad, cols):
+    """A small row table (ten points, the sentinel last; projective rows
+    with lazy limbs), indices with about one slot in five the sentinel, and
+    each column's sum on the int oracle."""
+    pts = [rand_point(rng) for _ in range(10)]
+    P = cv.from_affine_ints(pts)
+    rows = msm_mod.rows_from_affine(P.x, P.y) if lanes == 40 else msm_mod.rows_from_points(lazy(P, rng))
+    src = rng.integers(0, len(pts) + 1, (pad, cols))
+    src[rng.random((pad, cols)) < 0.2] = len(pts)
+    want = []
+    for c in range(cols):
+        s = None
+        for p in range(pad):
+            s = F.p_add(s, pts[src[p, c]] if src[p, c] < len(pts) else None)
+        want.append(s)
+    return rows, torch.from_numpy(src), want
+
+
+@pytest.mark.parametrize("T", [1, 2, 4, 8])
+@pytest.mark.parametrize("lanes", [40, 64], ids=["affine40", "proj64"])
+def test_bucket_accum_split_vs_oracle(rng, lanes, T):
+    """Any split of a column's slots across T threads, then the tree
+    combine, sums to the int oracle's point, held as canonical points (13
+    slots: at T = 8 chunks of 2 and the last one empty); the wrapper runs
+    the twin at the T it is given."""
+    rows, src, want = _bucket_accum_case(rng, lanes, 13, 12)
+    got = ck.bucket_accum_plain(rows, src, T)
+    assert cv.to_host(cv.PointVec(*got)) == want
+    for g, w in zip(ck.bucket_accum(rows, src, T), got):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("lanes", [40, 64], ids=["affine40", "proj64"])
+def test_bucket_accum_split_from_shapes_only(rng, lanes):
+    """The wrapper's default split is accum_split(pad, cols), from the
+    shapes alone: 4 threads a column at the n = 16384 main group (128 slots,
+    7,936 columns, the fill target), 16 at the folded top window (48 slots,
+    1,024 columns: chunks of 3), 1 below 4 slots; an all-sentinel column is
+    the identity at every split; other splits are refused."""
+    assert ck.accum_split(128, 31 * 256) == 4 and ck.accum_split(48, 1024) == 16
+    assert ck.accum_split(3, 128) == 1 and ck.accum_split(16, 6) == 8
+    rows, src, want = _bucket_accum_case(rng, lanes, 16, 6)
+    src[:, 0] = rows.shape[0] - 1
+    got = ck.bucket_accum(rows, src)
+    for g, w in zip(got, ck.bucket_accum_plain(rows, src, 8)):
+        assert torch.equal(g, w)
+    assert cv.to_host(cv.PointVec(*got)) == [None] + want[1:]
+    for bad in (0, 3, 32):
+        with pytest.raises(ValueError, match="bucket_accum splits"):
+            ck.bucket_accum(rows, src, bad)
 
 
 def test_affine_planes_roundtrip(rng):
@@ -455,6 +507,15 @@ def test_parse_ptxas_reads_padd_entries():
         "padd_kernel/halo::mul_small": {"stack": 0, "spill_stores": 0, "spill_loads": 0},
         "padd_kernel/halo::sub": {"stack": 0, "spill_stores": 0, "spill_loads": 0},
     }
+
+
+@pytest.mark.parametrize("threads", [0, 16, 100, 1056])
+def test_fmul_refuses_bad_block_size(lanes, threads):
+    """fmul's block size must be a multiple of 32 from 32 to 1024, checked
+    before the wrapper picks a device, so a bad size fails here too."""
+    _, _, P, Q = lanes
+    with pytest.raises(ValueError, match="fmul threads"):
+        ck.fmul(P.x, Q.x, threads)
 
 
 def test_wrappers_route_by_device(lanes):

@@ -18,7 +18,6 @@ import torch
 
 from halo_accumulation_tpu import fields as F, pcdl as jpcdl
 from halo_accumulation_tpu.ops import curve as jcv, msm as jmsm
-from halo_accumulation_tpu.ops.field import FR as JFR
 from halo_accumulation_tpu_torch import pcdl, pp as pp_mod, runtime
 from halo_accumulation_tpu_torch.ops import curve as cv, msm, poly
 from halo_accumulation_tpu_torch.ops.field import FR, L
