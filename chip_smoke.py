@@ -6,7 +6,10 @@ Phases, each printing one JSON line:
   1. device: the card (nvidia-smi name, power limit and top SM clock), torch
      and CUDA versions, and the nvcc build of every kernel from csrc/;
      then ptxas: each kernel function's registers and spills.
-  2. urs: the 16384-generator URS generated on the card, sampled against
+  2. native: the native host backend (hostops.use_native() must be True:
+     the run fails if it gave way to the Python oracle), its g++ build
+     seconds, and its ops on a sample against the fields.py oracle; then
+     urs: the 16384-generator URS generated on the card, sampled against
      the int oracle.
   3. kernels: fmul and padd at 65,536 lanes (both timed over ten launches
      queued), fmul also on every pair of its edge lanes (fmul_edge_limbs),
@@ -27,31 +30,45 @@ Phases, each printing one JSON line:
      bucket kernel at the n = 16384 main group's shapes (40 and 64 lanes,
      128 slots, 7936 columns, URS rows with about 5 % sentinel slots) and
      at its folded top window's (48 slots, 1024 columns), held to its twin
-     and timed at every split.
+     and timed at every split; finv (Fermat inversion) at 1, 2, 10, 1,024
+     and 65,536 lanes of Fq and Fr with 0, 1 and p - 1 among them, timed at
+     the path's two lanes (a round's L and R); rho_round (a round's
+     challenge) on 64 random (xi, L, R) triples and the boundary cases (L
+     or R the identity, y = (q - 1) / 2 and (q + 1) / 2).
      Each is held against its plain PyTorch twin (its limbs canonical and
      equal to FQ.canon of the twin's, see _same) and, on a sample, against
      the pure-Python int oracle; median times of kernel and twin by CUDA
      events, and each kernel's bound: the larger of the least bytes its
      function moves over the memory rate and the least 32-bit multiplies
-     it needs over the IMAD rate (see MIN_MULS_FMUL).
-  4. prove: build_chain(default_rng(7), 16384, 2) under each MSM setting
-     (sortrows, the default, then rowperm); both must equal the first two
-     step records of .chain_cache/chain_16384_10.bin byte for byte (the
-     JAX package built that file from the same rng; the depth is cut from
-     its 10 steps to 2, and step 1 already folds [acc, q]).
+     (rho_round: logic operations) it needs over the IMAD rate (see
+     MIN_MULS_FMUL, finv_least_chain and KECCAK_OPS32).
+  4. prove: build_chain(default_rng(7), 16384, 2) under sortrows with the
+     device-transcript open (the defaults), under sortrows with
+     HALO_TPU_OPEN_DEVICE=0, and under rowperm (which opens on the host
+     transcript); each must equal the first two step records of
+     .chain_cache/chain_16384_10.bin byte for byte (the JAX package built
+     that file from the same rng; the depth is cut from its 10 steps to 2,
+     and step 1 already folds [acc, q]), and none may take open_'s _safe
+     rebuild.  Then one device open at n = 16384 under torch.profiler: its
+     device-to-host copies are counted (expected: one, the proof), and its
+     synchronizing calls by source line (expected: none inside the rounds).
   5. chain: .chain_cache/chain_16384_10.bin through verify_chain and
      decide_many, first under sortrows and then under rowperm (both must
-     accept; wall times of the first run and the median of three more),
-     and tampered copies and one-step prefixes (must reject with the
-     reference's messages, REJECT_TEXTS).
+     accept; wall times of the first run and the median of three more,
+     and under sortrows three more with the host ops forced onto the
+     Python oracle), and tampered copies and one-step prefixes (must reject
+     with the reference's messages, REJECT_TEXTS).
   6. profile: one more sortrows run of each chain path, and one prover
-     step (build_chain with k = 1) under each setting, under torch.profiler
-     and under cProfile (tables in build/profile/).
+     step (build_chain with k = 1) under each of the prove phase's
+     settings, under torch.profiler and under cProfile (tables in
+     build/profile/).
 Every path runs with the launch counts set to 0 just before it and read
 just after it, and must launch the kernels its pipeline runs: bucket_accum
-on the rowperm paths, bucket_masked on the sortrows paths; the padd_widths
-and bucket_accum_widths lines give each path's launches of those kernels
-by width.  The run fails if any kernel has no launch over all paths.  The last line is
+on the rowperm paths, bucket_masked on the sortrows paths, finv and
+rho_round on the device-transcript prove; the <kernel>_widths lines give
+each path's launches of padd, pdbl, bucket_masked, bucket_accum and finv
+by width.  The run fails if any kernel has no launch over all paths.  The
+last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 without CUDA the script exits 1 before printing anything.
 """
@@ -60,6 +77,7 @@ from __future__ import annotations
 
 import contextlib
 import cProfile
+import hashlib
 import json
 import os
 import pstats
@@ -86,6 +104,9 @@ PDBL_K = 8
 FMUL_THREADS_TIMED = (64, 128, 256)  # fmul block sizes timed at LANES
 FMUL_ROTATE = 10  # input pairs of the L2-rotated fmul timing: 10 x 18.9 MB, the H100's L2 holds 50 MB
 PDBL_PATH_LANES = 10  # decide_many's Horner combine: its ten stacked deciders, PDBL_K = c doublings a window
+FINV_CHECKED = (1, 2, 10, 1024, 65536)  # finv widths held to the twin, Fq and Fr (1,024: fold_basis's to_affine)
+FINV_PATH_LANES = 2  # to_affine of a round's L and R (a round's challenge inverts 1 lane, fold_basis 1,024)
+RHO_RANDOM = 64  # random (xi, L, R) triples rho_round is held to its twin on
 QUEUE_CYCLES = 10_000_000  # about 5 ms of SM clock: covers the host's enqueue of ten launches
 SPLITS = (1, 2, 4, 8, 16)  # threads per column of both bucket kernels, all held to the twin and timed
 ACCUM_TOP_SHAPE = (48, 1024)  # pad, columns of the rowperm MSM's folded top window at n = 16384
@@ -137,6 +158,64 @@ IMPL_MULS_ADD = 3
 # mul_small, 1 sub, 3 add (the loads' and stores' conversions not counted)
 IMPL_MULS_PADD = 12 * IMPL_MULS_FMUL + 2 * IMPL_MULS_SMALL + (5 + 14) * IMPL_MULS_ADD
 IMPL_MULS_PDBL = 8 * IMPL_MULS_FMUL + 3 * IMPL_MULS_SMALL + (1 + 3) * IMPL_MULS_ADD
+# finv: a^(p - 2).  csrc/finv.cu runs the binary chain from the top bit
+# (finv_binary_chain: 254 squarings, popcount(p - 2) - 1 multiplies); the
+# least work takes the shortest chain known here for p - 2, the best
+# left-to-right sliding window (finv_least_chain: k = 4, 255 squarings and
+# 34 multiplies for both fields, against 76 / 73), a square at MIN_MULS_SQR
+# and a multiply at MIN_MULS_FMUL
+def finv_binary_chain(p: int) -> tuple[int, int]:
+    """(squarings, multiplies) of the binary chain for p - 2."""
+    e = p - 2
+    return e.bit_length() - 1, bin(e).count("1") - 1
+
+
+def sliding_window_chain(e: int, k: int) -> tuple[int, int]:
+    """(squarings, multiplies) of the left-to-right sliding-window chain
+    for e with windows of at most k bits: a table of the odd powers up to
+    2^k - 1 (one squaring, 2^(k-1) - 1 multiplies), the first window read
+    from it, then a squaring per bit and a multiply per later window."""
+    sq, mu = (1, (1 << (k - 1)) - 1) if k > 1 else (0, 0)
+    bits = bin(e)[2:]
+    i, first = 0, True
+    while i < len(bits):
+        if bits[i] == "0":
+            sq, i = sq + 1, i + 1
+            continue
+        j = min(i + k, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        if not first:
+            sq, mu = sq + j - i, mu + 1
+        first, i = False, j
+    return sq, mu
+
+
+def finv_least_chain(p: int) -> tuple[int, int]:
+    """(squarings, multiplies) of the cheapest sliding-window chain for
+    p - 2 over k = 1 to 8, weighed at MIN_MULS_SQR and MIN_MULS_FMUL."""
+    return min((sliding_window_chain(p - 2, k) for k in range(1, 9)),
+               key=lambda c: c[0] * MIN_MULS_SQR + c[1] * MIN_MULS_FMUL)
+
+
+# rho_round: one keccak-f[1600], 24 rounds on 25 64-bit lanes, each lane two
+# 32-bit words on the card's 32-bit integer pipes (64 a clock per SM, the
+# IMAD rate).  The least count a round, with sm_90's three-input LOP3 (any
+# function of three words) and funnel shifts (SHF: a 64-bit rotation is two):
+# theta's column parities 5 x 2 words x 2 LOP3 (five inputs) = 20, its five
+# rotations by 1 10 SHF, and each lane's a ^ C[x-1] ^ rot(C[x+1]) one LOP3 a
+# word 50; rho 24 rotations (lane 0's offset is 0, none is 32) 48 SHF; pi
+# none (renaming); chi a ^ (~b & c) one LOP3 a word 50; iota 2: 180 a round.
+# The absorb into the zero state and the digest's reduction mod r are not
+# counted.  Bytes: xi, the four coordinates and the digest, 32 bytes each,
+# and the two flag bytes
+KECCAK_OPS32 = 24 * (20 + 10 + 50 + 48 + 50 + 2)
+# csrc/rho_round.cu's source spells out two-input operations on 64-bit lanes:
+# theta 20 + 5 + 25 xors and 5 rotations, rho 25 rotations, chi 25 x 3 (not,
+# and, xor), iota 1 = 156 a round, two 32-bit operations each (what nvcc
+# fuses into LOP3 is not counted); reported beside the bound as impl_muls32
+KECCAK_IMPL_OPS32 = 24 * 156 * 2
+RHO_BYTES = 6 * 32 + 2
 # The JAX package's rejection texts that phase 5 provokes ({k} a step, {b}
 # a batch index or step, as in halo_accumulation_tpu/acc.py and pcdl.py)
 REJECT_TEXTS = {
@@ -154,7 +233,8 @@ REJECT_TEXTS = {
 MUST_LAUNCH = {"sortrows": {"padd", "pdbl", "bucket_masked"},
                "rowperm": {"padd", "pdbl", "bucket_accum"}}
 VERIFY_ALSO = {"fmul"}
-WIDTHS_KEPT = ("padd", "bucket_accum")  # kernels whose launches by width each path reports
+OPEN_DEVICE_ALSO = {"finv", "rho_round"}  # the device-transcript open's challenge and inversions
+WIDTHS_KEPT = ("padd", "pdbl", "bucket_masked", "bucket_accum", "finv")  # kernels whose launches by width each path reports
 
 
 def emit(obj) -> None:
@@ -192,17 +272,17 @@ def wall(fn) -> float:
 
 
 @contextlib.contextmanager
-def msm_impl(name: str):
-    """HALO_TPU_MSM_IMPL set to name for the block."""
-    old = os.environ.get("HALO_TPU_MSM_IMPL")
-    os.environ["HALO_TPU_MSM_IMPL"] = name
+def env(name: str, value: str):
+    """Environment variable name set to value for the block."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop("HALO_TPU_MSM_IMPL")
+            os.environ.pop(name)
         else:
-            os.environ["HALO_TPU_MSM_IMPL"] = old
+            os.environ[name] = old
 
 
 def counted(path: str, must: set, fn, launches: dict, widths: dict) -> float:
@@ -259,6 +339,47 @@ def bound(nbytes: float, muls: float, impl_muls: float, sm_mhz: float) -> dict:
     t_ops = muls / (SMS * IMAD_PER_CLOCK_SM * sm_mhz * 1e6)
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "muls32": muls, "impl_muls32": impl_muls}
+
+
+def phase_native(smi):
+    """The native host backend: hostops must take it (the run fails if it
+    gave way to the Python oracle), and its ops equal fields.py's on a
+    sample.  build_s: the g++ build in this process (None: an existing
+    build of the same source was reused)."""
+    from halo_accumulation_tpu_torch import fields as F
+    from halo_accumulation_tpu_torch import hostops, native
+
+    t = time.perf_counter()
+    if not hostops.use_native():
+        raise AssertionError("hostops.use_native() is False: the host ops fell back to the Python oracle")
+    first_use_s = time.perf_counter() - t
+    rng = np.random.default_rng(SEED + 1)
+    G = (F.G_X, F.G_Y)
+    ks = [int.from_bytes(rng.bytes(40), "little") % F.R for _ in range(8)]
+    pts = [F.p_mul(k, G) for k in ks]
+    checks = {
+        "point_add": [native.point_add(P, Q) == F.p_add(P, Q) for P, Q in zip(pts, pts[1:] + [None])]
+        + [native.point_add(pts[0], F.p_neg(pts[0])) is None, native.point_add(pts[0], pts[0]) == F.p_add(pts[0], pts[0])],
+        "scalar_mul": [native.scalar_mul(k, P) == F.p_mul(k, P) for k, P in zip(ks, pts[::-1])]
+        + [native.scalar_mul(0, pts[0]) is None, native.scalar_mul(F.R - 1, pts[1]) == F.p_neg(pts[1])],
+        "msm": [native.msm(ks, pts) == F.p_msm(ks, pts)],
+        "sha3": [native.sha3(m) == hashlib.sha3_256(m).digest() for m in (b"", rng.bytes(135), rng.bytes(1000))],
+    }
+    bad = [k for k, v in checks.items() if not all(v)]
+    if bad:
+        raise AssertionError(f"native {bad} disagree with the fields.py oracle")
+    G1 = F.p_mul(ks[0], G)
+    t = time.perf_counter()
+    for _ in range(20):
+        native.scalar_mul(ks[1], G1)
+    native_us = (time.perf_counter() - t) / 20 * 1e6
+    t = time.perf_counter()
+    F.p_mul(ks[1], G1)
+    oracle_us = (time.perf_counter() - t) * 1e6
+    emit({"phase": "native", "card": smi, "use_native": True, "build_s": native.build_s,
+          "first_use_s": first_use_s, "library": os.path.relpath(native.lib_path(), REPO),
+          "checked": {k: len(v) for k, v in checks.items()},
+          "host_p_mul_us": {"native": native_us, "oracle": oracle_us}})
 
 
 def phase_urs(dev):
@@ -327,21 +448,23 @@ def _rand_lam(rng, n, dev):
     return FQ.from_ints([int.from_bytes(rng.bytes(40), "little") % (F.Q - 1) + 1 for _ in range(n)], dev)
 
 
-def _same(what: str, got, want) -> int:
+def _same(what: str, got, want, field=None) -> int:
     """Hold a kernel's output to its plain twin: every coordinate canonical
-    (clean 15-bit limbs of a value below q, which FQ.canon leaves as they
-    are) and equal to FQ.canon of the twin's, limb for limb.  Canonical form
-    is unique, so this holds the values as strictly as limb equality did;
-    it gives up only the twin's lazy representative, which the kernels'
-    8-word arithmetic does not keep.  -> the largest limb difference (0)."""
+    (clean 15-bit limbs of a value below the modulus, which field.canon
+    leaves as they are; field FQ unless named) and equal to field.canon of
+    the twin's, limb for limb.  Canonical form is unique, so this holds the
+    values as strictly as limb equality did; it gives up only the twin's
+    lazy representative, which the kernels' 8-word arithmetic does not
+    keep.  -> the largest limb difference (0)."""
     from halo_accumulation_tpu_torch.ops.field import FQ
 
+    field = FQ if field is None else field
     err = 0
     for g, w in zip(got, want):
-        cw = FQ.canon(w)
+        cw = field.canon(w)
         if g.numel():
             err = max(err, int((g - cw).abs().max()))
-        if not torch.equal(FQ.canon(g), g):
+        if not torch.equal(field.canon(g), g):
             raise AssertionError(f"{what}: kernel limbs are not canonical")
         if not torch.equal(g, cw):
             raise AssertionError(f"{what}: kernel != FQ.canon(plain twin) (max |diff| {err})")
@@ -581,9 +704,9 @@ def phase_kernels(dev, pp, sm_mhz):
     rng = np.random.default_rng(SEED)
     res = {}
 
-    def record(name, got, want, ms, plain_ms, bnd, **extra):
-        res[name] = {"max_abs_err": _same(name, got, want), "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                     **bnd, **extra}
+    def record(name, got, want, ms, plain_ms, bnd, field=None, **extra):
+        res[name] = {"max_abs_err": _same(name, got, want, field), "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": None, **bnd, **extra}
 
     # fmul: random lazy limbs (value < 2^257), timed over ten launches
     # queued; then every pair of the edge lanes
@@ -711,11 +834,90 @@ def phase_kernels(dev, pp, sm_mhz):
                 acc = F.p_add(acc, host[int(srcn[p, col])])
             if cv.to_host(cv.PointVec(*(c[:, col : col + 1] for c in got)))[0] != acc:
                 raise AssertionError(f"bucket_accum ({lanes} lanes) disagrees with the int oracle")
+    _finv_rows(dev, rng, sm_mhz, record)
+    _rho_rows(dev, rng, sm_mhz, record)
     emit({"phase": "kernels", "lanes": LANES, **res})
     # the kernels line reports the 64-lane shape (the prover's rounds, most
     # of the launches) and carries both
     res["bucket_accum"] = {**res["bucket_accum_64"], "by_lanes": {k: res[f"bucket_accum_{k}"] for k in tables}}
+    # and finv's Fq row (to_affine), with both fields' rows
+    res["finv"]["by_field"] = {"Fq": dict(res["finv"]), "Fr": res["finv_fr"]}
     return res
+
+
+def _finv_rows(dev, rng, sm_mhz, record) -> None:
+    """finv held to its twin (FQ or FR pow_const(a, p - 2)) at the
+    FINV_CHECKED widths of both fields, lanes 0, 1, p - 1 first, and to
+    the int oracle's inverses; the path's shape (FINV_PATH_LANES) timed
+    over ten queued launches beside the bound of its least work, and one
+    launch at 1,024 and 65,536 lanes.  One row per field: finv (Fq,
+    to_affine) and finv_fr (FR.inv of each round's challenge)."""
+    from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
+    from halo_accumulation_tpu_torch.ops.field import FQ, FR
+
+    for name, f in (("finv", FQ), ("finv_fr", FR)):
+        widest = max(FINV_CHECKED)
+        vals = [0, 1, f.p - 1] + [int.from_bytes(rng.bytes(40), "little") % f.p for _ in range(61)]
+        a = f.from_ints(vals, dev)[:, torch.arange(widest, device=dev) % len(vals)].contiguous()
+        for n in FINV_CHECKED:
+            an = a[:, :n].contiguous()
+            got = ck.finv(an, f)
+            _same(f"{name} n={n}", [got], [ck.finv_plain(an, f)], f)
+            m = min(n, len(vals))
+            if f.to_ints(got[:, :m]) != [pow(v, f.p - 2, f.p) for v in vals[:m]]:
+                raise AssertionError(f"{name} at {n} lanes disagrees with the int oracle")
+        n = FINV_PATH_LANES
+        an = a[:, 1 : 1 + n].contiguous()  # from lane 1: nonzero
+        sq, mu = finv_least_chain(f.p)
+        isq, imu = finv_binary_chain(f.p)
+        record(name, [ck.finv(an, f)], [ck.finv_plain(an, f)],
+               cuda_time(lambda: [ck.finv(an, f) for _ in range(10)], 7, queued=True) / 10,
+               cuda_time(lambda: ck.finv_plain(an, f), 3),
+               bound(2 * FQ_BYTES * n, (sq * MIN_MULS_SQR + mu * MIN_MULS_FMUL) * n,
+                     (isq + imu) * IMPL_MULS_FMUL * n, sm_mhz),
+               field=f, lanes=n, least_chain={"squarings": sq, "multiplies": mu},
+               impl_chain={"squarings": isq, "multiplies": imu},
+               wide_ms={w: cuda_time(lambda aw=a[:, :w].contiguous(): ck.finv(aw, f), 5) for w in (1024, widest)},
+               note="a lane a thread: a chain of 330 dependent multiplies; at the path's few lanes its "
+                    "latency, not the rate, is what the card cannot beat")
+
+
+def _rho_rows(dev, rng, sm_mhz, record) -> None:
+    """rho_round held to its twin (ops/keccak.rho_round on the same card
+    tensors) on RHO_RANDOM random triples and the boundary cases, and the
+    kernel's challenge to the host transcript's on every case; timed over
+    ten queued launches beside its bound."""
+    from halo_accumulation_tpu_torch import fields as F
+    from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
+    from halo_accumulation_tpu_torch.ops.field import FQ, FR
+    from halo_accumulation_tpu_torch.utils import serialize as ser
+    from halo_accumulation_tpu_torch.utils import transcript as tr
+
+    half = (F.Q - 1) // 2
+    pts = _base_points(rng, 2 * RHO_RANDOM)
+    cases = [(int.from_bytes(rng.bytes(40), "little") % F.R, pts[2 * i], pts[2 * i + 1]) for i in range(RHO_RANDOM)]
+    cases += [(5, None, pts[0]), (6, pts[1], None), (7, None, None), (0, pts[2], F.p_neg(pts[2])),
+              (F.R - 1, (pts[3][0], half), (pts[4][0], half + 1)), (8, (pts[5][0], half + 1), (pts[6][0], half))]
+    xs = FQ.from_ints([0 if P is None else P[0] for _, P, Q in cases for P in (P, Q)], dev)
+    ys = FQ.from_ints([0 if P is None else P[1] for _, P, Q in cases for P in (P, Q)], dev)
+    inf = torch.tensor([P is None for _, P, Q in cases for P in (P, Q)], device=dev)
+    xis = FR.from_ints([c[0] for c in cases], dev)
+    outs, wants = [], []
+    for i, (xi, P, Q) in enumerate(cases):
+        args = (xis[:, i], xs[:, 2 * i], ys[:, 2 * i], inf[2 * i], xs[:, 2 * i + 1], ys[:, 2 * i + 1], inf[2 * i + 1])
+        got = ck.rho_round(*args)
+        _same(f"rho_round case {i}", [got[:, None]], [ck.rho_round_plain(*args)[:, None]], FR)
+        outs.append(got)
+        wants.append(tr.rho_0(ser.ser_scalar(xi), ser.ser_point(P), ser.ser_point(Q)))
+    if FR.to_ints(torch.stack(outs, 1)) != wants:
+        raise AssertionError("rho_round disagrees with the host transcript")
+    args = (xis[:, 0], xs[:, 0], ys[:, 0], inf[0], xs[:, 1], ys[:, 1], inf[1])
+    record("rho_round", [ck.rho_round(*args)[:, None]], [ck.rho_round_plain(*args)[:, None]],
+           cuda_time(lambda: [ck.rho_round(*args) for _ in range(10)], 7, queued=True) / 10,
+           cuda_time(lambda: ck.rho_round_plain(*args), 3),
+           bound(RHO_BYTES, KECCAK_OPS32, KECCAK_IMPL_OPS32, sm_mhz), field=FR, cases=len(cases),
+           note="one thread: a serial keccak-f; the launch and the chain's latency, not the rate, "
+                "are what the card cannot beat")
 
 
 def _raw_ints(t):
@@ -724,29 +926,136 @@ def _raw_ints(t):
     return limb_array_to_ints(t.cpu().numpy())
 
 
+@contextlib.contextmanager
+def safe_rebuilds():
+    """A list that collects open_'s _safe rebuilds in the block."""
+    from halo_accumulation_tpu_torch import pcdl
+
+    calls, fn = [], pcdl.open_
+
+    def spy(*args, **kwargs):
+        if kwargs.get("_safe"):
+            calls.append(kwargs)
+        return fn(*args, **kwargs)
+
+    pcdl.open_ = spy
+    try:
+        yield calls
+    finally:
+        pcdl.open_ = fn
+
+
+# the prove phase's runs: (path, MSM setting, HALO_TPU_OPEN_DEVICE, kernels it
+# must launch); rowperm opens on the host transcript whatever the switch says
+PROVES = (("prove_sortrows", "sortrows", "1", MUST_LAUNCH["sortrows"] | OPEN_DEVICE_ALSO),
+          ("prove_sortrows_host_open", "sortrows", "0", MUST_LAUNCH["sortrows"]),
+          ("prove_rowperm", "rowperm", "1", MUST_LAUNCH["rowperm"]))
+
+
 def phase_prove(pp, smi, launches, widths):
-    """build_chain from default_rng(7) under each setting, held to the
-    committed chain's first step records byte for byte."""
+    """build_chain from default_rng(7) under each of PROVES, held to the
+    committed chain's first step records byte for byte; no _safe rebuild."""
     from halo_accumulation_tpu_torch import chain
 
     raw = open(CHAIN, "rb").read()
     off = 16 + (8 if raw[:8] == chain.CHAIN_MAGIC else 0)  # d, k (and the tag) come first
     out = {}
-    for impl in ("sortrows", "rowperm"):
+    for path, impl, open_device, must in PROVES:
         built = {}
-        with msm_impl(impl):
-            s = counted(f"prove_{impl}", MUST_LAUNCH[impl],
+        with env("HALO_TPU_MSM_IMPL", impl), env("HALO_TPU_OPEN_DEVICE", open_device), safe_rebuilds() as rebuilds:
+            s = counted(path, must,
                         lambda: built.update(c=chain.build_chain(np.random.default_rng(7), N, PROVE_STEPS, pp)),
                         launches, widths)
+        if rebuilds:
+            raise AssertionError(f"{path}: open_ took its _safe rebuild {len(rebuilds)} times")
         d, qss, accs = built["c"]
         pos = off
         for step, rec in enumerate(chain.step_records(qss, accs)):
             if raw[pos : pos + len(rec)] != rec:
-                raise AssertionError(f"prove under {impl}: step {step} differs from {os.path.basename(CHAIN)}")
+                raise AssertionError(f"{path}: step {step} differs from {os.path.basename(CHAIN)}")
             pos += len(rec)
-        out[impl] = {"wall_s": s, "bytes_matched": pos - off, "launches": launches[f"prove_{impl}"]}
+        out[path] = {"msm": impl, "HALO_TPU_OPEN_DEVICE": open_device, "wall_s": s,
+                     "bytes_matched": pos - off, "safe_rebuilds": 0, "launches": launches[path]}
     emit({"phase": "prove", "n": N, "steps": PROVE_STEPS, "reduced": f"depth {PROVE_STEPS} of the file's 10 steps",
           "card": smi, "rng": "numpy default_rng(7)", "vs": os.path.basename(CHAIN), **out})
+    return out
+
+
+def phase_open_copies(pp, smi) -> dict:
+    """One device-transcript open at n = N (a hiding opening of a random
+    polynomial of degree N - 1, under the defaults) with torch.profiler
+    around _open_device: its device-to-host copies ("Memcpy DtoH" events;
+    expected one, the proof), its host-to-device copies ("Memcpy HtoD";
+    expected one, H' and xi_0 before the first round), and the synchronizing
+    calls that torch.cuda.set_sync_debug_mode("warn") reports, by the source
+    line that made them and in all and inside the rounds
+    (_open_fold_device: expected none).  The opening must check."""
+    import collections
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from halo_accumulation_tpu_torch import fields as F
+    from halo_accumulation_tpu_torch import pcdl
+    from halo_accumulation_tpu_torch.ops.field import FR
+
+    rng = np.random.default_rng(SEED + 2)
+    coeffs = [int.from_bytes(rng.bytes(40), "little") % F.R for _ in range(N)]
+    z, w = (int.from_bytes(rng.bytes(40), "little") % F.R for _ in range(2))
+    v = sum(c * pow(z, i, F.R) for i, c in enumerate(coeffs)) % F.R
+    cd = FR.from_ints(coeffs, pp.device)
+    C = pcdl.commit(cd, N - 1, w, pp)
+    seen = {}
+    inner, fold = pcdl._open_device, pcdl._open_fold_device
+    live = {"rec": []}  # the warnings recorder's list, filled as the open runs
+    in_rounds = [0]
+
+    def syncs(ws):
+        return [w for w in ws if "synchroniz" in str(w.message)]
+
+    def fold_traced(*args, **kwargs):
+        n0 = len(live["rec"])
+        try:
+            return fold(*args, **kwargs)
+        finally:
+            in_rounds[0] += len(syncs(live["rec"][n0:]))
+
+    def traced(*args, **kwargs):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                live["rec"] = rec
+                torch.cuda.set_sync_debug_mode("warn")
+                t = time.perf_counter()
+                try:
+                    res = inner(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                seen["wall_s"] = time.perf_counter() - t
+        names = [e.name() for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+        seen["memcpy_dtoh"] = sum("DtoH" in n for n in names)
+        seen["memcpy_htod"] = sum("HtoD" in n for n in names)
+        seen["sync_warnings"] = len(syncs(rec))
+        seen["sync_warnings_by_line"] = dict(collections.Counter(
+            f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in syncs(rec)).most_common())
+        return res
+
+    pcdl._open_device = traced
+    pcdl._open_fold_device = fold_traced
+    try:
+        with safe_rebuilds() as rebuilds:
+            pi = pcdl.open_(np.random.default_rng(3), cd, C, N - 1, z, w, pp, v=v)
+    finally:
+        pcdl._open_device, pcdl._open_fold_device = inner, fold
+    pcdl.check(C, N - 1, z, v, pi, pp)
+    out = {"phase": "open_copies", "n": N, "card": smi, **seen, "sync_warnings_in_rounds": in_rounds[0],
+           "safe_rebuilds": len(rebuilds)}
+    emit(out)
+    if seen.get("memcpy_dtoh") != 1 or in_rounds[0] or rebuilds:
+        raise AssertionError(f"device open: {seen.get('memcpy_dtoh')} device-to-host copies (expected 1), "
+                             f"{in_rounds[0]} syncs inside the rounds (expected 0), {len(rebuilds)} _safe rebuilds")
     return out
 
 
@@ -811,12 +1120,14 @@ def phase_chain(pp, smi, launches, widths):
     out, warm = {}, {}
     for impl in ("sortrows", "rowperm"):
         first, warm[impl] = {}, {}
-        with msm_impl(impl):
+        with env("HALO_TPU_MSM_IMPL", impl):
             for path, fn in paths.items():
                 tag = path if impl == "sortrows" else f"{path}_{impl}"
                 first[path] = counted(tag, MUST_LAUNCH[impl] | VERIFY_ALSO, fn, launches, widths)
             for path, fn in paths.items():
                 warm[impl][path] = float(np.median([wall(fn) for _ in range(3)]))
+            if impl == "sortrows":
+                oracle_warm = _warm_on_oracle(paths)
             tampered = _tampered(d, qss, accs, pp)
             for text, fn in tampered:
                 _expect_reject(fn, text)
@@ -824,9 +1135,24 @@ def phase_chain(pp, smi, launches, widths):
                      "verify_chain_warm_s": warm[impl]["verify_chain"],
                      "decide_many_warm_s": warm[impl]["decide_many"],
                      "tamper_rejected": [text for text, _ in tampered]}
+        if impl == "sortrows":
+            out[impl].update({f"{path}_warm_s_oracle_host_ops": s for path, s in oracle_warm.items()})
     emit({"phase": "chain", "chain": os.path.basename(CHAIN), "d": d, "K": K, "card": smi, **out,
           "launches": {k: v for k, v in launches.items() if not k.startswith("prove")}})
     return paths, warm["sortrows"]
+
+
+def _warm_on_oracle(paths) -> dict:
+    """Median warm seconds of each path over three runs with the host ops
+    forced onto the Python oracle (hostops.use_native() False), the
+    native backend's yardstick."""
+    from halo_accumulation_tpu_torch import hostops
+
+    hostops._use_native = False
+    try:
+        return {path: float(np.median([wall(fn) for _ in range(3)])) for path, fn in paths.items()}
+    finally:
+        hostops._use_native = None
 
 
 def phase_profile(paths, warm, smi) -> None:
@@ -901,20 +1227,21 @@ def main() -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     smi, sm_mhz = phase_device()
+    phase_native(smi)
     pp = phase_urs(dev)
     res = phase_kernels(dev, pp, sm_mhz)
     launches: dict[str, dict] = {}
     widths: dict[str, dict] = {}
     phase_prove(pp, smi, launches, widths)
+    phase_open_copies(pp, smi)
     paths, warm = phase_chain(pp, smi, launches, widths)
-    with msm_impl("sortrows"):
+    with env("HALO_TPU_MSM_IMPL", "sortrows"):
         phase_profile(paths, warm, smi)
     from halo_accumulation_tpu_torch import chain
 
-    for impl in ("sortrows", "rowperm"):
-        with msm_impl(impl):
-            phase_profile({f"prove_{impl}_1step": lambda: chain.build_chain(np.random.default_rng(7), N, 1, pp)},
-                          {}, smi)
+    for path, impl, open_device, _ in PROVES:
+        with env("HALO_TPU_MSM_IMPL", impl), env("HALO_TPU_OPEN_DEVICE", open_device):
+            phase_profile({f"{path}_1step": lambda: chain.build_chain(np.random.default_rng(7), N, 1, pp)}, {}, smi)
     from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
 
     kernels = []
@@ -923,15 +1250,16 @@ def main() -> int:
         if total == 0:
             raise AssertionError(f"kernel {name} was launched on no path")
         kernels.append({"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+                        **({"note": k.note} if k.note else {}),
                         "launches": total, "launches_by_path": {p: n[name] for p, n in launches.items()},
                         **{key: res[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                            "bound_by", "library_ms")},
                         **{key: res[name][key] for key in ("lanes", "k", "split", "threads", "by_threads", "at_path_shape",
-                                                           "by_fill", "by_width", "by_lanes") if key in res[name]}})
-    emit({"phase": "padd_widths", "note": "padd launches by width (lanes) on each counted path",
-          **widths["padd"]})
-    emit({"phase": "bucket_accum_widths", "note": "bucket_accum launches by width (columns) on each counted path",
-          **{p: w for p, w in widths["bucket_accum"].items() if w}})
+                                                           "by_fill", "by_width", "by_lanes", "by_field", "cases")
+                           if key in res[name]}})
+    for k in WIDTHS_KEPT:
+        emit({"phase": f"{k}_widths", "note": f"{k} launches by width (lanes; columns for the bucket kernels) "
+                                              "on each counted path", **{p: w for p, w in widths[k].items() if w}})
     emit({"phase": "done", "total_s": round(time.perf_counter() - t0, 3)})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

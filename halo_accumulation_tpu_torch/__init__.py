@@ -6,10 +6,12 @@ field and curve arithmetic on (18, *batch) int64 limb tensors, the
 sort-payload and row-permutation Pippenger MSMs (HALO_TPU_MSM_IMPL=sortrows,
 the default, or rowperm), the URS, PCDL commit / open / succinct and full
 checks, the ASDL prover, verifier and decider, and chain building, saving
-and loading.  On a CUDA device the point additions, doublings and both
-MSMs' bucket reductions run as hand-written Hopper kernels (`csrc/`, built
-with nvcc at first use); on the CPU the same functions run their plain
-PyTorch twins.  Modules keep the JAX package's names; the list-form limb
+and loading.  On a CUDA device the point additions, doublings, both
+MSMs' bucket reductions, field inversions and the IPA open's round
+challenges run as hand-written Hopper kernels (`csrc/`, built with nvcc at
+first use); on the CPU the same functions run their plain PyTorch twins.
+The protocol's single-point host ops run on a native C++ backend
+(`native/`, built with g++ at first use).  Modules keep the JAX package's names; the list-form limb
 math of its `ops/limbs.py` lives in `csrc/field.cuh` and `csrc/curve.cuh`,
 and the Pallas kernels' wrappers become `ops/cuda_kernels.py`.
 

@@ -1,8 +1,14 @@
-// Fq arithmetic on 8 x 32-bit words, one field element per thread.
+// Fq and Fr arithmetic on 8 x 32-bit words, one field element per thread.
 //
-// q = 2^254 + c with c = 0x224698fc094cf91b992d30ed00000001 (126 bits), so
+// The modulus is a template parameter (Fq, the default, or Fr below); both
+// Pasta primes have the same shape, q = 2^254 + c with a 126-bit c:
+//   Fq: c = 0x224698fc094cf91b992d30ed00000001,
+//   Fr: c = 0x224698fc0994a8dd8c46eb2100000001.
+// Below, q names either modulus and c its own constant.  So
 // 2^256 = 4q - 4c == -4c (mod q), 4c < 2^127.1 fills four words, and the
-// low word of c is 1 (q == 1 mod 2^32).  The multiply is pseudo-Mersenne:
+// low word of c is 1 (q == 1 mod 2^32): for Fr as for Fq, since the proof
+// below uses only these facts (c < 2^126, 4c < 2^127.1 with the same top
+// word 0x891a63f0, c's word 0 equal to 1), it holds for both as it stands.  The multiply is pseudo-Mersenne:
 // schoolbook 8 x 8 words, then two folds of the high half by -4c, then one
 // small fold (finish) that subtracts a multiple of q picked from the top
 // bits.  No Montgomery domain, so loads and stores cost no multiply.
@@ -37,6 +43,10 @@
 // (V < 2^255 < 2q, so one conditional subtraction of q), FQ.canon's form.
 // So a kernel's output equals FQ.canon of its plain twin limb for limb.
 //
+// The Fq instance is the code every kernel ran before the template: the
+// names without a modulus (mul, sub, mul_small, add, load_fe, store_fe,
+// from_chunks) are Fq's.
+//
 // Carry chains are written with 64-bit accumulators (IMAD.WIDE.U32 and
 // adds), not inline PTX, so no asm carry flag has to survive between
 // statements.  Loops have compile-time bounds and are fully unrolled so the
@@ -50,23 +60,40 @@ constexpr int L = 18;   // 15-bit limbs of a boundary plane
 constexpr int NW = 8;   // 32-bit words of a field element in registers
 constexpr uint32_t M15 = 0x7FFF;
 
-// c = q - 2^254, four words; word 0 is 1.
-__device__ __forceinline__ uint32_t c_word(int i) {
-  constexpr uint32_t d[4] = {0x00000001u, 0x992d30edu, 0x094cf91bu, 0x224698fcu};
-  return d[i];
-}
-// 4c, four words; word 0 is 4.
-__device__ __forceinline__ uint32_t c4_word(int i) {
-  constexpr uint32_t d[4] = {0x00000004u, 0x64b4c3b4u, 0x2533e46eu, 0x891a63f0u};
-  return d[i];
-}
-// q = 2^254 + c: words 4 to 6 are zero, word 7 is 2^30.
-__device__ __forceinline__ uint32_t q_word(int i) {
-  constexpr uint32_t d[NW] = {0x00000001u, 0x992d30edu, 0x094cf91bu, 0x224698fcu,
-                              0x00000000u, 0x00000000u, 0x00000000u, 0x40000000u};
-  return d[i];
-}
+// The moduli: c = q - 2^254 and 4c, four words each (word 0 is 1 and 4),
+// and q itself (words 4 to 6 zero, word 7 2^30).
+struct Fq {
+  static __device__ __forceinline__ uint32_t c_word(int i) {
+    constexpr uint32_t d[4] = {0x00000001u, 0x992d30edu, 0x094cf91bu, 0x224698fcu};
+    return d[i];
+  }
+  static __device__ __forceinline__ uint32_t c4_word(int i) {
+    constexpr uint32_t d[4] = {0x00000004u, 0x64b4c3b4u, 0x2533e46eu, 0x891a63f0u};
+    return d[i];
+  }
+  static __device__ __forceinline__ uint32_t q_word(int i) {
+    constexpr uint32_t d[NW] = {0x00000001u, 0x992d30edu, 0x094cf91bu, 0x224698fcu,
+                                0x00000000u, 0x00000000u, 0x00000000u, 0x40000000u};
+    return d[i];
+  }
+};
+struct Fr {
+  static __device__ __forceinline__ uint32_t c_word(int i) {
+    constexpr uint32_t d[4] = {0x00000001u, 0x8c46eb21u, 0x0994a8ddu, 0x224698fcu};
+    return d[i];
+  }
+  static __device__ __forceinline__ uint32_t c4_word(int i) {
+    constexpr uint32_t d[4] = {0x00000004u, 0x311bac84u, 0x2652a376u, 0x891a63f0u};
+    return d[i];
+  }
+  static __device__ __forceinline__ uint32_t q_word(int i) {
+    constexpr uint32_t d[NW] = {0x00000001u, 0x8c46eb21u, 0x0994a8ddu, 0x224698fcu,
+                                0x00000000u, 0x00000000u, 0x00000000u, 0x40000000u};
+    return d[i];
+  }
+};
 // R = x + top 2^256 - h q in [0, 2^255) (see the header).
+template <class M = Fq>
 __device__ __forceinline__ void finish(const uint32_t (&x)[NW], int top, uint32_t (&r)[NW]) {
   const int f = 4 * top + (int)(x[NW - 1] >> 30);
   const int g = f > 0 ? 1 - f : -f;  // -h
@@ -76,7 +103,7 @@ __device__ __forceinline__ void finish(const uint32_t (&x)[NW], int top, uint32_
   acc >>= 32;
 #pragma unroll
   for (int i = 1; i < 4; ++i) {
-    acc += (int64_t)g * (int64_t)c_word(i);
+    acc += (int64_t)g * (int64_t)M::c_word(i);
     m[i] = (uint32_t)acc;
     acc >>= 32;
   }
@@ -96,7 +123,7 @@ __device__ __forceinline__ void finish(const uint32_t (&x)[NW], int top, uint32_
 }
 
 // out = 4c * h: N words times four -> N + 4 words, row by row.
-template <int N>
+template <int N, class M = Fq>
 __device__ __forceinline__ void mul_c4(const uint32_t (&h)[N], uint32_t (&out)[N + 4]) {
 #pragma unroll
   for (int j = 0; j < N + 4; ++j) out[j] = 0;
@@ -105,7 +132,7 @@ __device__ __forceinline__ void mul_c4(const uint32_t (&h)[N], uint32_t (&out)[N
     uint64_t carry = 0;
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      const uint64_t s = (uint64_t)c4_word(k) * h[j] + out[k + j] + carry;  // k = 0: a shift by 2
+      const uint64_t s = (uint64_t)M::c4_word(k) * h[j] + out[k + j] + carry;  // k = 0: a shift by 2
       out[k + j] = (uint32_t)s;
       carry = s >> 32;
     }
@@ -113,6 +140,7 @@ __device__ __forceinline__ void mul_c4(const uint32_t (&h)[N], uint32_t (&out)[N
   }
 }
 
+template <class M = Fq>
 __device__ __forceinline__ void fe_mul(const uint32_t (&a)[NW], const uint32_t (&b)[NW],
                                        uint32_t (&r)[NW]) {
   // t = a b, 16 words, row by row: each step a[i] b[j] + t + carry < 2^64
@@ -135,10 +163,10 @@ __device__ __forceinline__ void fe_mul(const uint32_t (&a)[NW], const uint32_t (
 #pragma unroll
   for (int j = 0; j < NW; ++j) hi[j] = t[NW + j];
   uint32_t d[NW + 4];
-  mul_c4<NW>(hi, d);
+  mul_c4<NW, M>(hi, d);
   const uint32_t dh[4] = {d[NW], d[NW + 1], d[NW + 2], d[NW + 3]};
   uint32_t e[8];
-  mul_c4<4>(dh, e);
+  mul_c4<4, M>(dh, e);
   // X = L - D_lo + E with a signed carry; its last carry is the top word
   uint32_t x[NW];
   int64_t acc = 0;
@@ -148,9 +176,10 @@ __device__ __forceinline__ void fe_mul(const uint32_t (&a)[NW], const uint32_t (
     x[i] = (uint32_t)acc;
     acc >>= 32;
   }
-  finish(x, (int)acc, r);
+  finish<M>(x, (int)acc, r);
 }
 
+template <class M = Fq>
 __device__ __forceinline__ void fe_add(const uint32_t (&a)[NW], const uint32_t (&b)[NW],
                                        uint32_t (&r)[NW]) {
   uint32_t x[NW];
@@ -161,9 +190,10 @@ __device__ __forceinline__ void fe_add(const uint32_t (&a)[NW], const uint32_t (
     x[i] = (uint32_t)s;
     carry = s >> 32;
   }
-  finish(x, (int)carry, r);
+  finish<M>(x, (int)carry, r);
 }
 
+template <class M = Fq>
 __device__ __forceinline__ void fe_sub(const uint32_t (&a)[NW], const uint32_t (&b)[NW],
                                        uint32_t (&r)[NW]) {
   uint32_t x[NW];
@@ -174,9 +204,10 @@ __device__ __forceinline__ void fe_sub(const uint32_t (&a)[NW], const uint32_t (
     x[i] = (uint32_t)acc;
     acc >>= 32;
   }
-  finish(x, (int)acc, r);  // -1 after a borrow
+  finish<M>(x, (int)acc, r);  // -1 after a borrow
 }
 
+template <class M = Fq>
 __device__ __forceinline__ void fe_mul_small(const uint32_t (&a)[NW], uint32_t k,
                                              uint32_t (&r)[NW]) {
   uint32_t x[NW];
@@ -187,7 +218,7 @@ __device__ __forceinline__ void fe_mul_small(const uint32_t (&a)[NW], uint32_t k
     x[i] = (uint32_t)s;
     carry = s >> 32;
   }
-  finish(x, (int)carry, r);
+  finish<M>(x, (int)carry, r);
 }
 
 // Value form used by the curve formulas.  Arguments travel by value.
@@ -243,7 +274,7 @@ __device__ __forceinline__ Fe fe_word(uint32_t w0) {
 // and the carry out of word 7 is finish's top.  Nearly clean 15-bit limbs
 // (below 2^24) and clean 30-bit pairs keep every column below 2^63 and the
 // value below 2^280.
-template <int N, int BITS>
+template <int N, int BITS, class M = Fq>
 __device__ __forceinline__ Fe from_chunks(const uint32_t (&c)[N]) {
   static_assert((BITS * (N - 1)) / 32 < NW, "every chunk starts inside the eight words");
   uint64_t col[NW];
@@ -260,27 +291,29 @@ __device__ __forceinline__ Fe from_chunks(const uint32_t (&c)[N]) {
     carry = s >> 32;
   }
   Fe r;
-  finish(x, (int)carry, r.v);
+  finish<M>(x, (int)carry, r.v);
   return r;
 }
 
 // int64 limb planes (torch's boundary dtype) <-> registers.  Plane i of an
 // (18, n) tensor starts at i * stride.
+template <class M = Fq>
 __device__ __forceinline__ Fe load_fe(const int64_t* p, int64_t stride, int64_t col) {
   uint32_t c[L];
 #pragma unroll
   for (int i = 0; i < L; ++i) c[i] = (uint32_t)p[i * stride + col];
-  return from_chunks<L, 15>(c);
+  return from_chunks<L, 15, M>(c);
 }
 
 // The canonical limbs of a: V mod q (V < 2^255 < 2q: subtract q unless that
 // borrows), then 15 bits a limb.
+template <class M = Fq>
 __device__ __forceinline__ void store_fe(int64_t* p, int64_t stride, int64_t col, const Fe& a) {
   uint32_t d[NW];
   int64_t acc = 0;
 #pragma unroll
   for (int i = 0; i < NW; ++i) {
-    acc += (int64_t)a.v[i] - (int64_t)q_word(i);
+    acc += (int64_t)a.v[i] - (int64_t)M::q_word(i);
     d[i] = (uint32_t)acc;
     acc >>= 32;
   }

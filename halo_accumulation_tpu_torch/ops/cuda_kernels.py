@@ -1,7 +1,9 @@
 """The port's Hopper kernels: wrappers, launch counts and plain twins.
 
 Five CUDA kernels (sources in `halo_accumulation_tpu_torch/csrc/`) replace
-every Pallas kernel of `halo_accumulation_tpu/ops/pallas_kernels.py`:
+every Pallas kernel of `halo_accumulation_tpu/ops/pallas_kernels.py`, and
+two more replace XLA glue of the JAX package that runs hot on the card
+(no Pallas site):
 
   fmul           <- _fmul_kernel           Fq multiply (the others' inner loop)
   padd           <- _padd_kernel           complete projective add (a lane split across
@@ -11,6 +13,10 @@ every Pallas kernel of `halo_accumulation_tpu/ops/pallas_kernels.py`:
                                            (a column split across T threads)
   bucket_accum   <- _bucket_kernel_aff /   pad-axis bucket sums, row-permutation MSM
                     _bucket_kernel_proj    (a column split across T threads)
+  finv           <- Field.pow_const at     batched Fermat inversion, Fq or Fr (one
+                    Field.inv's root       lane a thread)
+  rho_round      <- pcdl._rho_round_device a round's challenge: the SHA3-256 of
+                    over ops/keccak.py     xi || L || R reduced mod r (one thread)
 
 Each has a plain PyTorch twin here that runs the same field operations in
 the same order (the twins run ops/limbs.py's list form stacked over a batch
@@ -35,7 +41,8 @@ from dataclasses import dataclass, field
 import torch
 
 from halo_accumulation_tpu_torch import runtime
-from halo_accumulation_tpu_torch.ops.field import FQ, I64, L, W
+from halo_accumulation_tpu_torch.ops import keccak
+from halo_accumulation_tpu_torch.ops.field import FQ, FR, I64, L, W
 
 B3 = 15  # 3 * b for y^2 = x^3 + 5
 # Row-table widths of the row-permutation MSM (ops/msm.rows_from_affine /
@@ -69,11 +76,13 @@ class Kernel:
     """One CUDA kernel: `csrc/<name>.cu` exports `halo_<name>(*argtypes)`,
     which returns cudaGetLastError().  launches counts the launches since
     reset_launches(), widths the same launches by width (lanes, or columns
-    of the bucket kernels)."""
+    of the bucket kernels).  replaces names the JAX package's code it
+    stands for; note says when that is XLA glue, not a Pallas kernel."""
 
     name: str
     replaces: str
     argtypes: list
+    note: str = ""
     launches: int = 0
     widths: Counter = field(default_factory=Counter)
     fn: Callable | None = None
@@ -94,6 +103,12 @@ KERNELS = {
                [_VP] * 5 + [_I32, _I64, _I64, _I32, _VP]),
         Kernel("bucket_accum", "halo_accumulation_tpu/ops/pallas_kernels.py:170",
                [_VP] * 5 + [_I32, _I64, _I64, _I32, _VP]),
+        Kernel("finv", "halo_accumulation_tpu/ops/field.py:308", [_VP, _VP, _I64, _I32, _VP],
+               "port kernel, no Pallas site: Field.pow_const at the root of Field.inv (:320), XLA glue"),
+        Kernel("rho_round", "halo_accumulation_tpu/pcdl.py:623",
+               [_VP, _I64, _VP, _VP, _I64, _VP, _VP, _VP, _I64, _VP, _VP, _VP],
+               "port kernel, no Pallas site: _rho_round_device and _ser_point_words (:607) over "
+               "ops/keccak.py, XLA glue"),
     )
 }
 
@@ -216,11 +231,17 @@ def pdbl_plain(P, k: int = 1):
     return x, y, z
 
 
+def finv_plain(a, field):
+    """a^(p - 2) of (18, n) limbs by the field's square-and-multiply."""
+    return field.pow_const(a, field.p - 2)
+
+
+rho_round_plain = keccak.rho_round
+
+
 def unpack_affine_planes(packed):
     """(L, ...) pair-packed planes -> (x, y) canonical limb tensors."""
-    shifts = torch.tensor([0, W], dtype=I64, device=packed.device)
-    shp = (1, 2) + (1,) * (packed.dim() - 1)
-    flat = ((packed[:, None] >> shifts.reshape(shp)) & 0x7FFF).reshape((2 * L,) + tuple(packed.shape[1:]))
+    flat = torch.stack([packed & 0x7FFF, (packed >> W) & 0x7FFF], dim=1).reshape((2 * L,) + tuple(packed.shape[1:]))
     return flat[:L], flat[L:]
 
 
@@ -476,3 +497,42 @@ def bucket_accum(rows, src, T: int | None = None):
         _launch("bucket_accum", cols, rows.data_ptr(), src.data_ptr(), *(o.data_ptr() for o in outs),
                 rows.shape[1], pad, cols, T)
     return tuple(outs)
+
+
+def finv(a, field):
+    """Lane-wise inverse a^(p - 2) (0 for 0) of (18, n) limbs of `field`,
+    ops.field's FQ or FR."""
+    if field is not FQ and field is not FR:
+        raise ValueError(f"finv takes FQ or FR, got {field!r}")
+    if _on_cpu(a):
+        return finv_plain(a, field)
+    a = a.contiguous()
+    n = _check_planes(a)
+    out = torch.empty_like(a)
+    if n:
+        _launch("finv", n, a.data_ptr(), out.data_ptr(), n, int(field is FR))
+    return out
+
+
+def rho_round(xi, Lax, Lay, Linf, Rax, Ray, Rinf):
+    """One round's challenge rho_0(ser(xi), ser_point(L), ser_point(R)) as
+    canonical (18,) Fr limbs, from canonical (18,) limb vectors (any
+    stride; L's two coordinates share one, as do R's) and 0-dim bool
+    infinity flags; the card's result stays on the card."""
+    ts = (xi, Lax, Lay, Linf, Rax, Ray, Rinf)
+    if _on_cpu(*ts):
+        return rho_round_plain(*ts)
+    for t in (xi, Lax, Lay, Rax, Ray):
+        if t.dtype != I64 or tuple(t.shape) != (L,):
+            raise ValueError(f"rho_round takes (18,) int64 limb vectors, got {t.dtype} {tuple(t.shape)}")
+    for f in (Linf, Rinf):
+        if f.dtype != torch.bool or f.numel() != 1:
+            raise ValueError("rho_round takes one bool infinity flag per point")
+    if Lax.stride(0) != Lay.stride(0):
+        Lax, Lay = Lax.contiguous(), Lay.contiguous()
+    if Rax.stride(0) != Ray.stride(0):
+        Rax, Ray = Rax.contiguous(), Ray.contiguous()
+    out = torch.empty(L, dtype=I64, device=xi.device)
+    _launch("rho_round", 1, xi.data_ptr(), xi.stride(0), Lax.data_ptr(), Lay.data_ptr(), Lax.stride(0),
+            Linf.data_ptr(), Rax.data_ptr(), Ray.data_ptr(), Rax.stride(0), Rinf.data_ptr(), out.data_ptr())
+    return out

@@ -37,7 +37,9 @@ class PointVec(NamedTuple):
 
 def identity(batch_shape=(), device="cpu") -> PointVec:
     z = FQ.zeros(batch_shape, device)
-    return PointVec(z, FQ.from_int(1, batch_shape, device).contiguous(), z.clone())
+    y = z.clone()
+    y[0].fill_(1)  # never a host copy, not even at batch shape ()
+    return PointVec(z, y, z.clone())
 
 
 def from_affine_ints(points, device="cpu") -> PointVec:
@@ -99,9 +101,15 @@ def peq(P: PointVec, Q: PointVec):
 
 
 def to_affine(P: PointVec):
-    """Batch-normalize: (x, y, inf_mask) with x, y canonical limbs."""
+    """Batch-normalize: (x, y, inf_mask) with x, y canonical limbs.  inv
+    maps z == 0 (mod q), and only it, to all-zero limbs, which marks the
+    identity.  On the card the fmul kernel already stores canonical limbs;
+    the CPU twin's lazy limbs are made canonical here."""
     zinv = FQ.inv(P.z)
-    return FQ.canon(fq_mul(P.x, zinv)), FQ.canon(fq_mul(P.y, zinv)), is_identity(P)
+    x, y = fq_mul(P.x, zinv), fq_mul(P.y, zinv)
+    if not x.is_cuda:
+        x, y = FQ.canon(x), FQ.canon(y)
+    return x, y, (zinv == 0).all(0)
 
 
 def to_host(P: PointVec) -> list:

@@ -62,7 +62,7 @@ def _pass(cols, n_out: int | None = None):
     n = cols.shape[0]
     out = cols.new_empty((n + 1,) + tuple(cols.shape[1:]))
     torch.bitwise_and(cols, MASK, out=out[:n])
-    out[n] = 0
+    out[n].zero_()  # a kernel: `= 0` on a 0-dim CUDA row copies from the host, a sync
     out[1:] += cols >> W
     return out if n_out is None else out[:n_out]
 
@@ -119,7 +119,7 @@ class Field:
         xs = int_to_limbs(x, total)
         return [xs[i] + (_DOM if i < m else 0) for i in range(total)]
 
-    def _const(self, key: str, digits: list[int], device):
+    def _const(self, key, digits: list[int], device):
         t = self._consts.get((key, device))
         if t is None:
             t = torch.tensor(digits, dtype=I64, device=device)
@@ -175,7 +175,11 @@ class Field:
         return torch.zeros((L,) + tuple(batch_shape), dtype=I64, device=device)
 
     def from_int(self, v: int, batch_shape=(), device="cpu"):
-        t = torch.tensor(int_to_limbs(v % self.p), dtype=I64, device=device)
+        """v broadcast over batch_shape: a read-only view of a constant kept
+        on the device per value (one host-to-device copy per value and
+        device, so a loop on the card syncs only on its first call); take
+        it for constants."""
+        t = self._const(("int", v % self.p), int_to_limbs(v % self.p), device)
         return t.reshape((L,) + (1,) * len(batch_shape)).expand((L,) + tuple(batch_shape))
 
     def from_ints(self, vs, device="cpu"):
@@ -241,7 +245,7 @@ class Field:
 
     def _cond_sub(self, v, K: int):
         n = v.shape[0]
-        comp = torch.tensor(int_to_limbs((1 << (W * n)) - K, n), dtype=I64, device=v.device)
+        comp = self._const(("cond_sub", K, n), int_to_limbs((1 << (W * n)) - K, n), v.device)
         t = self._ripple(v + comp.reshape((n,) + (1,) * (v.dim() - 1)), n + 1)
         ge = t[n] != 0
         return torch.where(ge[None], t[:n], v)
@@ -265,9 +269,30 @@ class Field:
     def is_zero(self, a):
         return (self.canon(a) == 0).all(0)
 
+    def pow_const(self, a, e: int):
+        """a^e for a constant e >= 0, square-and-multiply from e's top bit
+        down, starting from 1, as the JAX package's pow_const: its multiply
+        where a bit is 0 is selected away, so skipping it gives the same
+        limbs."""
+        acc = self.from_int(1, tuple(a.shape[1:]), a.device)
+        for i in reversed(range(max(1, e.bit_length()))):
+            acc = self.mul(acc, acc)
+            if (e >> i) & 1:
+                acc = self.mul(acc, a)
+        return acc
+
     def inv(self, a):
-        """Batched inversion via a binary product tree whose root is
-        inverted on the host (one Fermat exponent on a Python int); 0 -> 0."""
+        """Batched inversion on the device, 0 -> 0 (exact zero limbs), no
+        host copy.  On a CUDA tensor every lane goes through the finv
+        kernel (Fermat, a^(p - 2)) in one launch: its lanes run side by
+        side, so one launch costs about what the JAX package's product
+        tree costs at its root alone, without the tree's 2 lg n levels of
+        multiplies (PERF.md).  On the CPU, the JAX package's product tree,
+        its root inverted by pow_const."""
+        from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
+
+        if a.is_cuda:
+            return ck.finv(a.reshape(L, -1), self).reshape(a.shape)
         batch = tuple(a.shape[1:])
         n = int(np.prod(batch)) if batch else 1
         flat = a.reshape(L, n)
@@ -284,8 +309,7 @@ class Field:
         while cur.shape[1] > 1:
             cur = self.mul(cur[:, 0::2], cur[:, 1::2])
             levels.append(cur)
-        root = self.to_ints(cur)[0]
-        inv = self.from_ints([pow(root, self.p - 2, self.p)], a.device)
+        inv = self.pow_const(cur, self.p - 2)
         for lev in reversed(levels[:-1]):
             left = self.mul(inv, lev[:, 1::2])
             right = self.mul(inv, lev[:, 0::2])

@@ -25,6 +25,8 @@ chosen by HALO_TPU_MSM_IMPL as in the JAX package (`_impl`):
     pipeline with pads measured from the digits.
   * `msm_rows`: many small independent MSMs, one per row, by a 4-bit
     windowed double-and-add (the batched succinct checks).
+  * `fold_basis`: the device-transcript open's collapse of a basis by 16,
+    sixteen scalars shared by every column (Strauss).
   * `fixed_base*`: the MSMs over the URS (commitments, the prover's rounds,
     the deciders' deferred MSM).  They pick the pipeline and the URS table
     it reads (`_sortrows` is the one reader of the setting), so pcdl.py
@@ -44,7 +46,7 @@ import torch
 from halo_accumulation_tpu_torch import fields as _fields
 from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
 from halo_accumulation_tpu_torch.ops import curve as cv
-from halo_accumulation_tpu_torch.ops.field import FR, I64, L
+from halo_accumulation_tpu_torch.ops.field import FQ, FR, I64, L
 
 NBITS = 255
 # Most point columns (window group x buckets x pad) one sorted group may
@@ -302,6 +304,49 @@ def _sortrows_msm(planes, scalars, c: int, pads: list[int], beffs: list[int], ro
     acc = _horner_routes(_cat_groups(Vs), c)
     outs = [cv.PointVec(acc.x[:, r], acc.y[:, r], acc.z[:, r]) for r in range(nroute)]
     return outs, torch.stack(oks).all()
+
+
+_FOLD_CHUNK = 4096  # fold_basis columns per chunk: bounds its 16-multiple table
+
+
+def fold_basis(planes, t16):
+    """Collapse a pair-packed affine basis (18, W) by 16: with w2 = W / 16,
+
+        B'[j] = sum_{h=0}^{15} t16[:, h] * B[h w2 + j],   j < w2,
+
+    the IPA open's generator fold for four rounds at once (t16: the tensor
+    coefficients of the segment's four challenges, shared by every j).
+    Shared-scalar Strauss, as the JAX package's fold_basis: per column a
+    table of the 16 multiples 0..15 of each of its 16 points (14 adds), then
+    the scalars' 64 four-bit windows, msb first: four doublings (one pdbl
+    launch of k = 4), the table entries the window's digits pick, summed
+    16 ways, and one add.  Chunks of at most _FOLD_CHUNK columns.
+    -> (planes' (18, w2) pair-packed affine, any_inf): any_inf, left on the
+    device, is True iff a folded point is the identity (negligible; the
+    caller then rebuilds the proof on the host path)."""
+    Wd = planes.shape[1]
+    w2 = Wd // 16
+    dev = planes.device
+    xs, ys = unpack_affine_planes(planes)
+    xs, ys = xs.reshape(L, 16, w2), ys.reshape(L, 16, w2)
+    digits = _digits(t16, 4)  # (64, 16), msb window first
+    outs = []
+    for j0 in range(0, w2, _FOLD_CHUNK):
+        ch = min(_FOLD_CHUNK, w2 - j0)
+        P = cv.PointVec(xs[:, :, j0 : j0 + ch], ys[:, :, j0 : j0 + ch], FQ.from_int(1, (16, ch), dev))
+        tab = [cv.identity((16, ch), dev), P]
+        for _ in range(14):
+            tab.append(cv.padd(tab[-1], P))
+        T = [torch.stack([t[i] for t in tab]) for i in range(3)]  # (16 multiples, 18, 16, ch)
+        acc = cv.identity((ch,), dev)
+        for k in range(64):
+            acc = cv.pdbl(acc, 4)
+            idx = digits[k][None, None, :, None].expand(1, L, 16, ch)
+            sel = cv.PointVec(*(torch.gather(t, 0, idx)[0] for t in T))  # (18, 16, ch)
+            acc = cv.padd(acc, cv.sum_points(sel, axis=0))
+        outs.append(acc)
+    ax, ay, inf = cv.to_affine(_cat_groups(outs))
+    return planes_from_affine(ax, ay), inf.any()
 
 
 def msm_many_flagged(planes, scalars_many, c: int, pads: list[int], beffs: list[int]):

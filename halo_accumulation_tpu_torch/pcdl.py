@@ -7,22 +7,29 @@ commit :99, open :120, succinct_check :252, check :323):
     data, so the transcript replays on the host and the group equation
     comes back as one MSM row (points, scalars) that must sum to the
     identity; many rows batch into one `msm_rows` call on the device.
-  * `open_` is the JAX package's host-transcript prover: the lg(n) fold
-    rounds hash on the host, and each round's L and R are fixed-base MSMs
-    over the ORIGINAL URS with tensor-coefficient scalars (the basis never
-    folds).  Under the sort-payload MSM one dual-output pass computes both
-    per round; under the row-permutation MSM, two MSMs
-    (`msm.fixed_base_pair` chooses; this module never reads the MSM
-    setting).  One copy per round
-    brings both points and both dot products to the host.  The JAX
-    package's device-transcript prover gives the same proof bytes and is
-    not ported yet.
+  * `open_` takes the JAX package's two routes, under the JAX package's
+    condition: the device transcript (`_open_device`) by default, at widths
+    above 256 under the sort-payload MSM; the host transcript otherwise or
+    under HALO_TPU_OPEN_DEVICE=0.  Both write the same proof bytes.  In
+    each, a round's L and R are fixed-base MSMs with tensor-coefficient
+    scalars over the URS.
+      - Host transcript: the rounds hash on the host, one copy per round
+        brings both points and both dot products over, and the basis never
+        folds.  Under the sort-payload MSM one dual-output pass computes
+        both points; under the row-permutation MSM, two MSMs
+        (`msm.fixed_base_pair` chooses).
+      - Device transcript: every round stays on the device - H' rides as
+        two extra basis columns, the challenge is hashed on the card
+        (`ck.rho_round`), and every four rounds the basis folds by 16
+        (`msm.fold_basis`), so later rounds run at 1/16 of the width.  The
+        whole open makes one device-to-host copy.
 
 Proof objects live on the host as canonical ints.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
@@ -30,8 +37,8 @@ import torch
 from halo_accumulation_tpu_torch import fields as F
 from halo_accumulation_tpu_torch import hostops as H
 from halo_accumulation_tpu_torch import pp as pp_mod
-from halo_accumulation_tpu_torch.ops import curve as cv, msm as msm_mod, poly as poly_mod
-from halo_accumulation_tpu_torch.ops.field import FR, L, limb_array_to_ints
+from halo_accumulation_tpu_torch.ops import cuda_kernels as ck, curve as cv, msm as msm_mod, poly as poly_mod
+from halo_accumulation_tpu_torch.ops.field import FR, I64, L, ints_to_limb_array, limb_array_to_ints
 from halo_accumulation_tpu_torch.utils import serialize as ser
 from halo_accumulation_tpu_torch.utils import transcript as tr
 
@@ -41,6 +48,14 @@ Point = tuple | None  # host affine point: (x, y) ints or None for infinity
 def point_to_host(P: cv.PointVec) -> Point:
     """One projective device point -> host affine ints (one copy)."""
     return cv.to_host(P)[0]
+
+
+def _point_and_flag_to_host(P: cv.PointVec, ok):
+    """One projective device point and a bool flag in ONE copy:
+    (host affine point, bool)."""
+    blob = torch.cat([P.x, P.y, P.z, ok.to(I64).reshape(1)]).cpu().numpy()
+    x, y, z = limb_array_to_ints(blob[: 3 * L].reshape(3, L).T)
+    return cv.affine_int(x, y, z), bool(blob[3 * L])
 
 
 def host_msm(scalars, points) -> Point:
@@ -154,7 +169,12 @@ def commit(coeffs, d: int, w: int | None, pp: pp_mod.PublicParams) -> Point:
             C = host_msm(coeffs, pp.gs_host(len(coeffs)))
             return C if w is None else H.p_add(C, H.p_mul(w, pp.s))
         coeffs = FR.from_ints(coeffs, pp.device)
-    C = point_to_host(msm_mod.fixed_base(pp, _pad_pow2(coeffs, n)))
+    coeffs = _pad_pow2(coeffs, n)
+    # the pinned-pad MSM's point and flag come over in one copy; the rare
+    # overflow re-runs with measured pads
+    C, ok = _point_and_flag_to_host(*msm_mod.fixed_base_flagged(pp, coeffs))
+    if not ok:
+        C = point_to_host(msm_mod.fixed_base(pp, coeffs))
     return C if w is None else H.p_add(C, H.p_mul(w, pp.s))
 
 
@@ -164,16 +184,19 @@ def commit(coeffs, d: int, w: int | None, pp: pp_mod.PublicParams) -> Point:
 def open_(rng, coeffs, C: Point, d: int, z: int, w: int | None, pp: pp_mod.PublicParams,
           _safe: bool = False, v: int | None = None) -> EvalProof:
     """IPA opening proof of p(z) = v for the polynomial committed in C
-    (pcdl.rs:120-242), the JAX package's host-transcript path.  rng: a numpy
-    Generator, drawn from exactly as the JAX prover draws (the hiding
-    polynomial's k - 1 coefficients, then w_bar), so the same rng gives the
-    same proof bytes.  coeffs: (18, k) Fr tensor or list of ints; hiding iff
-    w is not None; v: p(z) when the caller knows it.
+    (pcdl.rs:120-242).  rng: a numpy Generator, drawn from exactly as the
+    JAX prover draws (the hiding polynomial's k - 1 coefficients, then
+    w_bar), so the same rng gives the same proof bytes.  coeffs: (18, k) Fr
+    tensor or list of ints; hiding iff w is not None; v: p(z) when the
+    caller knows it.
 
-    The sort-payload rounds leave their pinned-pad flags on the device and
-    check them once at the end; on the astronomically rare overflow the
-    proof is rebuilt with _safe=True (every MSM measures its pads), drawing
-    fresh prover randomness, as the JAX package does."""
+    The rounds take the device transcript (_open_device) under the JAX
+    package's condition: sort-payload MSMs, n above 256, not _safe, and
+    HALO_TPU_OPEN_DEVICE not "0" (the default is "1"); else the host
+    transcript.  Pinned-pad flags stay on the device and are checked once
+    at the end; on the astronomically rare overflow the proof is rebuilt
+    with _safe=True (every MSM measures its pads), drawing fresh prover
+    randomness, as the JAX package does."""
     n = _check_degree(d, pp)
     dev = pp.device
     if isinstance(coeffs, list):
@@ -209,6 +232,9 @@ def open_(rng, coeffs, C: Point, d: int, z: int, w: int | None, pp: pp_mod.Publi
     if k < n:
         cs = torch.cat([cs, FR.zeros((n - k,), dev)], dim=1)
     zs = poly_mod.powers(zl, n)
+    if (n > msm_mod._LADDER_MAX and not _safe and msm_mod._sortrows(n) and H_prime is not None
+            and os.environ.get("HALO_TPU_OPEN_DEVICE", "1") != "0"):
+        return _open_device(rng, orig_coeffs, cs, zs, C, d, z, w, pp, C_bar, w_prime, xi, H_prime)
     t = FR.from_int(1, (n,), dev)
     Ls, Rs, flags = [], [], []
     m = n // 2
@@ -281,6 +307,117 @@ def _open_round_fold(cs, zs, t, m: int, xi, xi_inv):
     z_new = torch.where(mask, FR.add(zs, poly_mod.scale(zs[:, ip], xi)), zero)
     t_new = torch.where(((i & m) != 0)[None], poly_mod.scale(t, xi), t)
     return c_new, z_new, t_new
+
+
+_COLLAPSE_MIN = 2048  # collapse segments while the width is at least this (W / 16 >= 128)
+
+
+def _open_device(rng, orig_coeffs, cs, zs, C, d: int, z: int, w, pp: pp_mod.PublicParams, C_bar, w_prime,
+                 xi0: int, H_prime) -> "EvalProof":
+    """open_'s device-transcript rounds (JAX pcdl._open_device): segments
+    of _open_fold_device chained on the device, then ONE copy of the whole
+    proof to the host.  Proof bytes equal the host transcript's.  A pinned
+    pad overflow, or a collapsed basis point at the identity, rebuilds the
+    proof through open_(..., _safe=True), the host transcript with measured
+    pads and fresh prover randomness."""
+    n = d + 1
+    lg_n = n.bit_length() - 1
+    dev = pp.device
+    # H' rides as two extra basis columns (scalars: the round's two dot
+    # products, one per route), then six zero columns, so N % 8 == 0; H'
+    # and xi_0 come over in one copy, the open's only one before its end
+    inputs = torch.from_numpy(ints_to_limb_array([H_prime[0]] * 2 + [H_prime[1]] * 2 + [xi0])).to(dev)
+    planes_ext = torch.cat([pp.gs_planes(n), msm_mod.planes_from_affine(inputs[:, 0:2], inputs[:, 2:4]),
+                            torch.zeros((L, 6), dtype=I64, device=dev)], dim=1)
+    xi = inputs[:, 4]
+    rounds, oks = [], []
+    # Wc, the segment width, is kept apart from the limb width W: shadowing
+    # W corrupted every proof of the JAX package once
+    Wc, rounds_left = n, lg_n
+    while Wc >= _COLLAPSE_MIN and rounds_left > 4:
+        seg, planes_ext, cs, zs, xi, ok = _open_fold_device(planes_ext, cs, zs, xi, 4, *_dual_params(Wc))
+        rounds += seg
+        oks.append(ok)
+        Wc //= 16
+        rounds_left -= 4
+    cU = msm_mod.window_size(Wc)
+    seg, (Uax, Uay, Uinf, c0, ok) = _open_fold_device(
+        planes_ext, cs, zs, xi, rounds_left, *_dual_params(Wc),
+        finalize=(cU, msm_mod.pinned_pads(Wc, cU), msm_mod._beffs(cU)))
+    rounds += seg
+    oks.append(ok)
+    # ONE copy for the whole proof: the rounds' affine limbs, U, c and the
+    # flags (infinity flags, then the AND of every ok flag)
+    flags = [f for r in rounds for f in (r[2], r[5])] + [Uinf, torch.stack(oks).all()]
+    blob = torch.cat([torch.stack([torch.stack([r[i] for i in (0, 1, 3, 4)]) for r in rounds]).reshape(-1),
+                      Uax, Uay, c0, torch.stack(flags).to(I64)]).cpu().numpy()
+    k = len(rounds)
+    coords = blob[: 4 * L * k].reshape(k, 4, L)
+    Uh = blob[4 * L * k : 4 * L * k + 3 * L].reshape(3, L)
+    fl = blob[4 * L * k + 3 * L :].astype(bool)
+    if not fl[-1]:
+        return open_(rng, orig_coeffs, C, d, z, w, pp, _safe=True)
+
+    def to_int(limbs) -> int:
+        return sum(int(v) << (15 * i) for i, v in enumerate(limbs))
+
+    def to_pt(x, y, inf) -> Point:
+        return None if inf else (to_int(x), to_int(y))
+
+    Ls = [to_pt(coords[i, 0], coords[i, 1], fl[2 * i]) for i in range(k)]
+    Rs = [to_pt(coords[i, 2], coords[i, 3], fl[2 * i + 1]) for i in range(k)]
+    return EvalProof(Ls, Rs, to_pt(Uh[0], Uh[1], fl[-2]), to_int(Uh[2]), C_bar, w_prime)
+
+
+def _dual_params(Wc: int):
+    """The dual-route MSM's window, pinned pads and bucket sizes at segment
+    width Wc: each route's support is Wc / 2 points."""
+    c = msm_mod.window_size(max(Wc // 2, 1))
+    return c, msm_mod.pinned_pads(max(Wc // 2, 1), c), msm_mod._beffs(c)
+
+
+def _open_fold_device(planes_ext, cs, zs, xi, k: int, c_dual: int, pads_dual, beffs_dual, finalize=None):
+    """k IPA rounds at segment width Wf = cs.shape[1], nothing copied to the
+    host: per round one dual-route MSM over the extended basis (H' in two
+    columns, the dot products as their scalars, so L and R come out
+    whole), batch normalization, the challenge hashed on the device, its
+    inverse by Fermat on the device, and the field-only fold.
+
+    finalize None (a collapse segment, k = 4): afterwards the basis folds by
+    16 with the segment's tensor coefficients (msm.fold_basis), so the next
+    segment runs at Wf / 16.  -> (rounds, planes_ext', cs', zs', xi', ok).
+    finalize (cU, padsU, beffsU): U = <t_final, basis> after the rounds.
+    -> (rounds, (U.x, U.y, U infinity, c, ok)).
+    rounds: per round (L.x, L.y, L inf, R.x, R.y, R inf), canonical limbs."""
+    Wf = cs.shape[1]
+    dev = cs.device
+    t = FR.from_int(1, (Wf,), dev)
+    tail_route = (torch.arange(8, device=dev) == 1).to(I64)  # H' by route, then the zero columns
+    zeros6 = FR.zeros((6,), dev)
+    rounds, oks = [], []
+    for i in range(k):
+        m = Wf >> (i + 1)
+        s_comb, route, dot_l, dot_r = _open_round_pre(cs, zs, t, m)
+        s_ext = torch.cat([s_comb, dot_l[:, None], dot_r[:, None], zeros6], dim=1)
+        (Lp, Rp), okv = msm_mod._sortrows_msm(planes_ext, s_ext, c_dual, pads_dual, beffs_dual,
+                                               route=torch.cat([route, tail_route]), nroute=2)
+        ax, ay, inf = cv.to_affine(cv.PointVec(*(torch.stack([a, b], dim=1) for a, b in zip(Lp, Rp))))
+        rnd = (ax[:, 0], ay[:, 0], inf[0], ax[:, 1], ay[:, 1], inf[1])
+        xi = ck.rho_round(xi, *rnd)  # xi_{i+1} = rho_0(xi_i, L, R) (pcdl.rs:212), left on the device
+        cs, zs, t = _open_round_fold(cs, zs, t, m, xi, FR.inv(xi))
+        rounds.append(rnd)
+        oks.append(okv)
+    if finalize is not None:
+        cU, padsU, beffsU = finalize
+        t_ext = torch.cat([t, FR.zeros((8,), dev)], dim=1)
+        (Up,), okU = msm_mod._sortrows_msm(planes_ext, t_ext, cU, padsU, beffsU)
+        Uax, Uay, Uinf = cv.to_affine(cv.PointVec(*(a[:, None] for a in Up)))
+        return rounds, (Uax[:, 0], Uay[:, 0], Uinf[0], FR.canon(cs[:, 0]), torch.stack(oks + [okU]).all())
+    w2 = Wf // 16
+    t16 = t.reshape(L, 16, w2)[:, :, 0]  # t[h * w2]: one coefficient per block of w2
+    basis2, any_inf = msm_mod.fold_basis(planes_ext[:, :Wf], t16)
+    planes2 = torch.cat([basis2, planes_ext[:, Wf:]], dim=1)
+    return rounds, planes2, cs[:, :w2], zs[:, :w2], xi, torch.stack(oks).all() & ~any_inf
 
 
 def _mul_by_linear(q, zl):

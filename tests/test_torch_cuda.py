@@ -255,8 +255,102 @@ def test_zero_width_launches_nothing(cuda):
     before = ck.launch_counts()
     assert ck.fmul(e, e).shape == (L, 0)
     assert all(t.shape == (L, 0) for t in ck.padd((e, e, e), (e, e, e)) + ck.pdbl((e, e, e)))
+    assert ck.finv(e, FQ).shape == (L, 0)
     ck.bucket_masked(torch.empty((L, 8, 0), dtype=torch.int64, device=cuda), torch.empty((1, 0), dtype=torch.int64, device=cuda))
     rows = torch.zeros((3, 40), dtype=torch.int64, device=cuda)
     assert all(t.shape == (L, 0) for t in ck.bucket_accum(rows, torch.empty((8, 0), dtype=torch.int64, device=cuda)))
     assert ck.launch_counts() == before
     assert not any(ck.launch_widths()[k].get(0) for k in ck.KERNELS)
+
+
+@pytest.mark.parametrize("n", [1, 2, 10, 1024, 65536])
+@pytest.mark.parametrize("name", ["Fq", "Fr"])
+def test_finv_matches_twin(cuda, rng, name, n):
+    """finv equals its twin, pow_const(a, p - 2), canonically, and the int
+    oracle's inverses (0 for 0), with 0, 1 and p - 1 in the first lanes;
+    one launch at width n."""
+    f = FQ if name == "Fq" else FR
+    vals = ([0, 1, f.p - 1] + [int.from_bytes(rng.bytes(40), "little") % f.p for _ in range(61)])[:n]
+    a = f.from_ints(vals, cuda)[:, torch.arange(n, device=cuda) % len(vals)].contiguous()
+    want = f.canon(ck.finv_plain(a, f))  # the twin's torch ops on the card
+    ck.reset_launches()
+    got = ck.finv(a, f)
+    torch.cuda.synchronize()
+    assert ck.launch_widths()["finv"] == {n: 1}
+    assert torch.equal(f.canon(got), got) and torch.equal(got, want)
+    assert f.to_ints(got[:, : len(vals)]) == [pow(v, f.p - 2, f.p) for v in vals]
+
+
+def test_rho_round_matches_twin(cuda, rng):
+    """rho_round equals ops/keccak.py's twin and the host transcript on 64
+    random (xi, L, R) triples and the boundary cases: L, R or both the
+    identity, y = (q - 1) / 2 (no flag) and (q + 1) / 2 (flagged), L = -R,
+    xi = 0 and r - 1; the limb vectors are column views of (18, 2)
+    tensors, as the device open passes them."""
+    from halo_accumulation_tpu_torch.utils import serialize as ser, transcript as tr
+
+    half = (F.Q - 1) // 2
+    G = (F.G_X, F.G_Y)
+    pts = [F.p_mul(int.from_bytes(rng.bytes(40), "little") % F.R, G) for _ in range(128)]
+    cases = [(int.from_bytes(rng.bytes(40), "little") % F.R, pts[2 * i], pts[2 * i + 1]) for i in range(64)]
+    cases += [(5, None, pts[0]), (6, pts[1], None), (7, None, None), (0, pts[2], F.p_neg(pts[2])),
+              (F.R - 1, (pts[3][0], half), (pts[4][0], half + 1)), (8, (pts[5][0], half + 1), (pts[6][0], half))]
+    ck.reset_launches()
+    for xi, P, Q in cases:
+        xs = FQ.from_ints([0 if X is None else X[0] for X in (P, Q)], cuda)
+        ys = FQ.from_ints([0 if X is None else X[1] for X in (P, Q)], cuda)
+        inf = torch.tensor([P is None, Q is None], device=cuda)
+        args = (FR.from_ints([xi], cuda)[:, 0], xs[:, 0], ys[:, 0], inf[0], xs[:, 1], ys[:, 1], inf[1])
+        got = ck.rho_round(*args)
+        assert torch.equal(got, ck.rho_round_plain(*args))
+        assert FR.to_ints(got[:, None]) == [tr.rho_0(ser.ser_scalar(xi), ser.ser_point(P), ser.ser_point(Q))]
+    assert ck.launch_counts()["rho_round"] == len(cases)
+
+
+def test_open_device_collapse_matches_host_on_card(cuda, monkeypatch):
+    """The device-transcript open at n = 512 with one collapse segment
+    forced (pcdl._COLLAPSE_MIN lowered to 512) writes the host
+    transcript's bytes, launches finv and rho_round once per round at
+    least, and the proof checks."""
+    from halo_accumulation_tpu_torch import pcdl
+
+    pp = pp_mod.get_pp(512, cuda)
+    rng = np.random.default_rng(11)
+    p = [int.from_bytes(rng.bytes(40), "little") % F.R for _ in range(450)]
+    z = int.from_bytes(rng.bytes(40), "little") % F.R
+    v = sum(c * pow(z, i, F.R) for i, c in enumerate(p)) % F.R
+    cd = FR.from_ints(p, cuda)
+    C = pcdl.commit(cd, 511, None, pp)
+    monkeypatch.setenv("HALO_TPU_OPEN_DEVICE", "0")
+    host = pcdl.open_(np.random.default_rng(1), cd, C, 511, z, None, pp, v=v)
+    monkeypatch.setenv("HALO_TPU_OPEN_DEVICE", "1")
+    monkeypatch.setattr(pcdl, "_COLLAPSE_MIN", 512)
+    ck.reset_launches()
+    dev = pcdl.open_(np.random.default_rng(1), cd, C, 511, z, None, pp, v=v)
+    counts = ck.launch_counts()
+    assert dev.serialize() == host.serialize()
+    assert counts["rho_round"] == 9 and counts["finv"] >= 2 * 9, counts
+    pcdl.check(C, 511, z, v, dev, pp)
+
+
+@pytest.mark.parametrize("name", ["Fq", "Fr"])
+def test_inv_and_to_affine_on_card(cuda, rng, name):
+    """Field.inv on the card (every lane through finv, one launch) gives
+    the CPU path's values, zeros and a lazy zero (limbs of p) included,
+    with exact zero limbs for them; to_affine on the card marks the
+    identity and stores canonical coordinates equal to the CPU path's."""
+    f = FQ if name == "Fq" else FR
+    vs = [int.from_bytes(rng.bytes(40), "little") % f.p for _ in range(29)] + [0, 1, f.p - 1]
+    a = f.from_ints(vs)
+    a[:, 0] = torch.tensor([(f.p >> (15 * i)) & 0x7FFF for i in range(L)])  # the value p: zero, lazily
+    vs[0] = 0
+    ck.reset_launches()
+    got = f.inv(a.to(cuda))
+    assert ck.launch_counts()["finv"] == 1
+    assert torch.equal(f.canon(got).cpu(), f.canon(f.inv(a)))
+    assert (got == 0).all(0).tolist() == [v == 0 for v in vs]
+    if f is FQ:
+        P, _ = _points(rng, 64)
+        want = cv.to_affine(cv.PointVec(*P))
+        got = cv.to_affine(cv.PointVec(*(c.to(cuda) for c in P)))
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))

@@ -8,6 +8,7 @@ rejection texts that chip_smoke.py provokes on the card are held to the
 JAX package's sources, read as text.
 """
 
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -15,14 +16,15 @@ import pytest
 import torch
 
 import chip_smoke
-from halo_accumulation_tpu import acc as jacc, pcdl as jpcdl, pp as jpp
+from halo_accumulation_tpu import acc as jacc, chain as jchain, fields as JF, pcdl as jpcdl, pp as jpp
 from halo_accumulation_tpu.utils import serialize as jser
-from halo_accumulation_tpu_torch import acc, pcdl, pp as pp_mod
+from halo_accumulation_tpu_torch import acc, chain, fields as F, pcdl, pp as pp_mod
 from halo_accumulation_tpu_torch.ops.field import FR, L
 from halo_accumulation_tpu_torch.utils import serialize as ser
 
 JAX_SRC = pathlib.Path(jacc.__file__).resolve().parent
 PORT_SRC = pathlib.Path(acc.__file__).resolve().parent
+CHAIN_512 = PORT_SRC.parent / ".chain_cache" / "chain_512_10.bin"
 N = 16
 
 
@@ -134,3 +136,60 @@ def test_reject_texts_are_the_jax_packages(key):
         src = (root / "acc.py").read_text() + (root / "pcdl.py").read_text()
         assert quoted in src, (root.name, text)
 
+
+def test_succinct_check_degree():
+    """A degree whose d + 1 is no power of two, checked before the proof is
+    read, with the JAX package's text."""
+    _, qss, _ = chain.load_chain(CHAIN_512)
+    q = qss[0][0]
+    e = assert_same(lambda: pcdl.succinct_check_parts(q.C, 6, q.z, q.v, q.pi, None),
+                    lambda: jpcdl.succinct_check_parts(q.C, 6, q.z, q.v, q.pi, None))
+    assert str(e) == "d+1 is not a power of 2"
+
+
+def test_point_not_on_curve():
+    """A compressed x with no y on the curve: the first such x from 0 up."""
+    x = next(x for x in range(100) if F.sqrt_mod(x**3 + F.B_COEFF, F.Q) is None)
+    b = x.to_bytes(33, "little")
+    e = assert_same(lambda: ser.deser_point(b), lambda: jser.deser_point(b))
+    assert type(e) is ValueError and str(e) == "x is not on the curve"
+
+
+@pytest.fixture(scope="module")
+def step_512():
+    """The first step of chain_512_10.bin in both packages' types, and the
+    (port, JAX) parameters of a 512-generator URS made by the port."""
+    pp = pp_mod.get_pp(512, "cpu")
+    gx, gy, s, h = pp_mod.to_numpy(pp)
+    d, qss, accs = chain.load_chain(CHAIN_512)
+    jd, jqss, jaccs = jchain.load_chain(CHAIN_512)
+    return (d, qss[0], accs[0], pp), (jd, jqss[0], jaccs[0], jpp.PublicParams(512, gx, gy, s, h))
+
+
+def _jax_succinct_check_batch(checks, pp, mesh=None, axis=None):
+    """The JAX package's succinct_check_batch with its row MSM on the int
+    oracle (the same replay, verdicts and text, and no XLA compile)."""
+    out = []
+    for b, chk in enumerate(checks):
+        h, pts, scs = jpcdl.succinct_check_parts(*chk, pp)
+        if JF.p_msm(scs, pts) is not None:
+            raise ValueError(f"C_(log_n) != CM.Commit_Sigma(c || v') (batch index {b})")
+        out.append((h, chk[4].U))
+    return out
+
+
+@pytest.mark.parametrize("field", ["C_bar", "z", "d", "v"])
+def test_acc_verifier_texts(step_512, field, monkeypatch):
+    """acc.verifier on the first step of chain_512_10.bin with one field of
+    the accumulator changed rejects with the JAX package's text: another
+    step's C_bar, z + 1, d + 1 or v + 1 (the port's row MSM runs its CPU
+    twins; the JAX package's runs on the int oracle)."""
+    (d, qs, a, pp), (jd, jqs, ja, jp) = step_512
+    other = chain.load_chain(CHAIN_512)[2][1].C_bar
+    change = {"C_bar": lambda x: dataclasses.replace(x, C_bar=other),
+              "z": lambda x: dataclasses.replace(x, z=(x.z + 1) % F.R),
+              "d": lambda x: dataclasses.replace(x, d=x.d + 1),
+              "v": lambda x: dataclasses.replace(x, v=(x.v + 1) % F.R)}[field]
+    monkeypatch.setattr(jpcdl, "succinct_check_batch", _jax_succinct_check_batch)
+    e = assert_same(lambda: acc.verifier(d, qs, change(a), pp), lambda: jacc.verifier(jd, jqs, change(ja), jp))
+    assert str(e) == {"C_bar": "C_bar' != C_bar", "z": "z' != z", "d": "d' != d", "v": "h(z) != v"}[field]

@@ -92,3 +92,45 @@ def test_inv_select_sum(rng, name):
     assert f.to_ints(f.sum_along(a, 0)) == [sum(vs) % f.p]
     m = torch.arange(len(vs)) % 2 == 0
     assert f.to_ints(f.select(m, a, f.neg(a))) == [v if i % 2 == 0 else -v % f.p for i, v in enumerate(vs)]
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_pow_const_matches_jax_limbs(rng, name):
+    """pow_const takes the JAX package's square-and-multiply (JAX selects
+    away the multiply where a bit is 0; the port skips it), so on the same
+    lazy inputs the limbs are the JAX package's; the values are pow's, and
+    the inverse exponent p - 2 gives the inverse (0 for 0).  Exact."""
+    f, jf = FIELDS[name]
+    a_int = lazy_pair(rng, f.p)[0][:6] + [0, 1, f.p - 1]
+    a, ja = both(a_int)
+    e = 0xDEADBEEF12345678  # the JAX package's own test exponent (tests/test_field.py)
+    got = f.pow_const(a, e)
+    want = np.asarray(cached_jit(jf.pow_const, jf.name, e, static_argnums=1)(ja, e)).astype(np.int64)
+    assert np.array_equal(got.numpy(), want)
+    assert f.to_ints(got) == [pow(x, e, f.p) for x in a_int]
+    assert f.to_ints(f.pow_const(a, f.p - 2)) == [pow(x, f.p - 2, f.p) for x in a_int]
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_inv_root_stays_on_the_device(rng, name, monkeypatch):
+    """On the CPU inv inverts its product tree's root with pow_const (the
+    finv kernel's plain twin), never through host ints: with to_ints and
+    every copy to the CPU made to fail, a batch holding zeros still gives
+    the canonical limbs of the inverses, and exact zero limbs for 0.
+    tests/test_torch_cuda.py holds the card's lane-wise finv to this."""
+    f, _ = FIELDS[name]
+    vs = rand_ints(rng, 5, f.p) + [0, 1, f.p - 1, 0, 2]
+    a = f.from_ints(vs)
+    want = ints_to_limb_array([pow(v, -1, f.p) if v else 0 for v in vs])
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("inv copied to the host")
+
+    monkeypatch.setattr(type(f), "to_ints", refuse)
+    monkeypatch.setattr(torch.Tensor, "cpu", refuse)
+    monkeypatch.setattr(torch.Tensor, "item", refuse)
+    raw = f.inv(a)
+    got = f.canon(raw)
+    monkeypatch.undo()
+    assert np.array_equal(got.numpy(), want)
+    assert ((raw == 0).all(0)).tolist() == [v == 0 for v in vs]

@@ -24,7 +24,7 @@ import torch
 import chip_smoke
 from halo_accumulation_tpu_torch import fields as F
 from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
-from halo_accumulation_tpu_torch.ops.field import FQ, L, limb_array_to_ints
+from halo_accumulation_tpu_torch.ops.field import FQ, FR, L, limb_array_to_ints
 
 FIELD_CUH = pathlib.Path(ck.__file__).resolve().parents[1] / "csrc" / "field.cuh"
 
@@ -47,12 +47,17 @@ def value(ws) -> int:
 
 
 class Model:
-    """field.cuh, step for step; `products` counts the 32 x 32-bit products
-    (multiplies by the words 1 of c and 4 of 4c are shifts and not
+    """field.cuh, step for step, for the modulus p (its Fq instance by
+    default; R for the Fr instance); `products` counts the 32 x 32-bit
+    products (multiplies by the words 1 of c and 4 of 4c are shifts and not
     counted)."""
 
-    def __init__(self):
+    def __init__(self, p: int = Q):
         self.products = 0
+        self.p = p
+        c = p - (1 << 254)
+        self.c_words, self.c4_words = tuple(to_words(c, 4)), tuple(to_words(4 * c, 4))
+        self.q_words = tuple(to_words(p))
 
     def finish(self, x, top):
         assert len(x) == NW and -(1 << 24) < top < (1 << 24)
@@ -63,7 +68,7 @@ class Model:
         acc >>= 32
         for i in range(1, 4):
             self.products += 1
-            acc += g * C_WORDS[i]
+            acc += g * self.c_words[i]
             m.append(acc & M32)
             acc >>= 32
         for _ in range(4, NW):
@@ -75,7 +80,7 @@ class Model:
             s = x[i] + m[i] + carry
             r.append(s & M32)
             carry = s >> 32
-        assert value(r) == (value(x) + top * (1 << 256) + g * Q)  # exact, no wrap
+        assert value(r) == (value(x) + top * (1 << 256) + g * self.p)  # exact, no wrap
         assert r[7] < TOP_BOUND
         return r
 
@@ -87,7 +92,7 @@ class Model:
             for j in range(n):
                 if k:
                     self.products += 1
-                s = C4_WORDS[k] * h[j] + out[k + j] + carry
+                s = self.c4_words[k] * h[j] + out[k + j] + carry
                 assert s < (1 << 64)
                 out[k + j] = s & M32
                 carry = s >> 32
@@ -159,12 +164,11 @@ class Model:
     def load(self, limbs):
         return self.from_chunks(list(limbs), 15)
 
-    @staticmethod
-    def store(a):
+    def store(self, a):
         """Canonical 15-bit limbs of a (value below 2^255 < 2q)."""
         d, acc = [], 0
         for i in range(NW):
-            acc += a[i] - Q_WORDS[i]
+            acc += a[i] - self.q_words[i]
             d.append(acc & M32)
             acc >>= 32
         w = (a if acc < 0 else d) + [0]
@@ -354,3 +358,62 @@ def test_curve_formulas_on_words_equal_canonical_twin(op):
             out = (x, y, z)
         for c, wc in zip(out, want):
             assert m.store(c) == wc[j]
+
+
+R_C_WORDS = (0x00000001, 0x8C46EB21, 0x0994A8DD, 0x224698FC)  # the Fr instance's c
+R_C4_WORDS = (0x00000004, 0x311BAC84, 0x2652A376, 0x891A63F0)  # its 4c
+
+
+def test_fr_constants_are_literals_of_field_cuh():
+    """The Fr instance's c, 4c and r are field.cuh's literals; c < 2^126
+    with word 0 equal to 1, and 4c has Fq's top word, so the header's proof
+    holds for it as for Fq."""
+    m = Model(F.R)
+    assert m.c_words == R_C_WORDS and m.c4_words == R_C4_WORDS and value(m.q_words) == F.R
+    c = F.R - (1 << 254)
+    assert c < (1 << 126) and R_C_WORDS[0] == 1 and R_C4_WORDS[3] == C4_WORDS[3]
+    src = FIELD_CUH.read_text()
+    for w in R_C_WORDS + R_C4_WORDS:
+        assert re.search(rf"\b0x0*{w:x}u?\b", src, re.IGNORECASE), hex(w)
+    assert f"{c:#x}" in src
+
+
+def test_fr_instance_random_and_edges():
+    """The Fr instance: mul, add, sub and mul_small against Python's exact
+    arithmetic mod r on random values below 2^255 and on r's edges; load and
+    canonical store against FR.canon."""
+    m = Model(F.R)
+    rnd = random.Random(12)
+    r = F.R
+    edges = [0, 1, r - 1, r, r + 1, 1 << 254, 2 * r - 1, (1 << 255) - 1]
+    vals = [rnd.getrandbits(255) for _ in range(3_000)] + edges
+    for a, b in zip(vals, vals[1:] + vals[:1]):
+        for got, want in ((m.mul(to_words(a), to_words(b)), a * b), (m.add(to_words(a), to_words(b)), a + b),
+                          (m.sub(to_words(a), to_words(b)), a - b), (m.mul_small(to_words(a), 15), 15 * a)):
+            assert value(got) < (1 << 255) and value(got) % r == want % r
+    rng = np.random.default_rng(13)
+    for v in [int.from_bytes(rng.bytes(33), "little") >> 7 for _ in range(200)] + edges:
+        limbs = lazy_limbs(v, rng)
+        want = FR.canon(torch.tensor(limbs, dtype=torch.int64).reshape(L, 1))[:, 0].tolist()
+        assert m.store(m.load(limbs)) == want == [((v % r) >> (15 * i)) & 0x7FFF for i in range(L)]
+
+
+@pytest.mark.parametrize("p", [Q, F.R], ids=["Fq", "Fr"])
+def test_finv_chain_on_words(p):
+    """csrc/finv.cu's exponent chain on the model's words: from the top bit
+    of p - 2 (bit 254), 254 squarings and a multiply at every set bit,
+    words 7 to 0 as exp_word gives them (word 0 all ones, word 1 c's word 1
+    less one); equal to pow(a, p - 2, p), 0 for 0."""
+    m = Model(p)
+    e_words = [0xFFFFFFFF, m.c_words[1] - 1] + list(m.q_words[2:])
+    assert value(e_words) == p - 2
+    rnd = random.Random(14)
+    for v in [0, 1, p - 1, rnd.randrange(p), (1 << 255) - 1]:
+        a = to_words(v)
+        acc = a
+        for j in range(NW - 1, -1, -1):
+            for b in range(29 if j == NW - 1 else 31, -1, -1):
+                acc = m.mul(acc, acc)
+                if (e_words[j] >> b) & 1:
+                    acc = m.mul(acc, a)
+        assert m.store(acc) == [((pow(v, p - 2, p)) >> (15 * i)) & 0x7FFF for i in range(L)]

@@ -525,7 +525,8 @@ def test_wrappers_route_by_device(lanes):
     ck.reset_launches()
     assert all(torch.equal(a, b) for a, b in zip(ck.padd(tuple(P), tuple(Q)), ck.padd_plain(tuple(P), tuple(Q))))
     assert torch.equal(ck.fmul(P.x, Q.x), ck.fmul_plain(P.x, Q.x))
-    assert ck.launch_counts() == {"fmul": 0, "padd": 0, "pdbl": 0, "bucket_masked": 0, "bucket_accum": 0}
+    assert ck.launch_counts() == {"fmul": 0, "padd": 0, "pdbl": 0, "bucket_masked": 0, "bucket_accum": 0,
+                                  "finv": 0, "rho_round": 0}
     meta_dev = torch.empty((L, 4), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
         ck.fmul(meta_dev, meta_dev)
