@@ -30,9 +30,10 @@ Phases, each printing one JSON line:
      bucket kernel at the n = 16384 main group's shapes (40 and 64 lanes,
      128 slots, 7936 columns, URS rows with about 5 % sentinel slots) and
      at its folded top window's (48 slots, 1024 columns), held to its twin
-     and timed at every split; finv (Fermat inversion) at 1, 2, 10, 1,024
-     and 65,536 lanes of Fq and Fr with 0, 1 and p - 1 among them, timed at
-     the path's two lanes (a round's L and R); rho_round (a round's
+     and timed at every split; finv (inversion by divsteps) at 1, 2, 10,
+     1,024 and 65,536 lanes of Fq and Fr, the edge lanes first (0, 1,
+     p - 1, 2^254, lazy limbs at or above p), timed at every width, the
+     path's two lanes (a round's L and R) its row; rho_round (a round's
      challenge) on 64 random (xi, L, R) triples and the boundary cases (L
      or R the identity, y = (q - 1) / 2 and (q + 1) / 2).
      Each is held against its plain PyTorch twin (its limbs canonical and
@@ -41,7 +42,7 @@ Phases, each printing one JSON line:
      events, and each kernel's bound: the larger of the least bytes its
      function moves over the memory rate and the least 32-bit multiplies
      (rho_round: logic operations) it needs over the IMAD rate (see
-     MIN_MULS_FMUL, finv_least_chain and KECCAK_OPS32).
+     MIN_MULS_FMUL, finv_least_ops and KECCAK_OPS32).
   4. prove: build_chain(default_rng(7), 16384, 2) under sortrows with the
      device-transcript open (the defaults), under sortrows with
      HALO_TPU_OPEN_DEVICE=0, and under rowperm (which opens on the host
@@ -158,16 +159,31 @@ IMPL_MULS_ADD = 3
 # mul_small, 1 sub, 3 add (the loads' and stores' conversions not counted)
 IMPL_MULS_PADD = 12 * IMPL_MULS_FMUL + 2 * IMPL_MULS_SMALL + (5 + 14) * IMPL_MULS_ADD
 IMPL_MULS_PDBL = 8 * IMPL_MULS_FMUL + 3 * IMPL_MULS_SMALL + (1 + 3) * IMPL_MULS_ADD
-# finv: a^(p - 2).  csrc/finv.cu runs the binary chain from the top bit
-# (finv_binary_chain: 254 squarings, popcount(p - 2) - 1 multiplies); the
-# least work takes the shortest chain known here for p - 2, the best
+# finv: a^-1 mod p.  Its least work is the smaller of two counts: Fermat's
+# a^(p - 2) on the shortest chain known here for p - 2, the best
 # left-to-right sliding window (finv_least_chain: k = 4, 255 squarings and
-# 34 multiplies for both fields, against 76 / 73), a square at MIN_MULS_SQR
-# and a multiply at MIN_MULS_FMUL
-def finv_binary_chain(p: int) -> tuple[int, int]:
-    """(squarings, multiplies) of the binary chain for p - 2."""
-    e = p - 2
-    return e.bit_length() - 1, bin(e).count("1") - 1
+# 34 multiplies for both fields), a square at MIN_MULS_SQR and a multiply at
+# MIN_MULS_FMUL; and Bernstein-Yang divsteps (FINV_DIVSTEP_OPS32): hddivstep
+# needs at most FINV_DIVSTEPS = 590 of them for inputs below 2^256
+# (Wuille's bound, libsecp256k1's doc/safegcd_implementation.md), each
+# DIVSTEP_OPS = 21 32-bit operations with sm_90's three-input LOP3 and
+# IADD3 (csrc/finv.cu's step: the two masks 3, three conditional adds to
+# g, q, r 6, zeta 2, three conditional adds to f, u, v 6, three shifts 3,
+# and the swap mask 1), and ceil(590 / FINV_BATCH) batches whose 2 x 2
+# matrix costs MATRIX_MULS products: 36 on (f, g) and 36 on (d, e) over
+# nine 30-bit limbs, and 8 for the multiples of p on p's limbs 1 to 4 (limb
+# 0 is 1, limbs 5 to 7 are 0, limb 8 is 2^14: no products).  csrc/finv.cu
+# runs 20 batches of 30, each divstep as 27 two-input operations as
+# written: FINV_IMPL_OPS32 a lane, reported as impl_muls32;
+# tests/test_torch_field_words.py counts both on a model of finv.cu.
+FINV_DIVSTEPS = 590
+FINV_BATCH = 30
+FINV_BATCHES = 20
+DIVSTEP_OPS = 21
+DIVSTEP_IMPL_OPS = 27
+MATRIX_MULS = 36 + 36 + 8
+FINV_IMPL_OPS32 = FINV_BATCHES * (FINV_BATCH * DIVSTEP_IMPL_OPS + MATRIX_MULS)
+FINV_DIVSTEP_OPS32 = FINV_DIVSTEPS * DIVSTEP_OPS + -(-FINV_DIVSTEPS // FINV_BATCH) * MATRIX_MULS
 
 
 def sliding_window_chain(e: int, k: int) -> tuple[int, int]:
@@ -198,6 +214,13 @@ def finv_least_chain(p: int) -> tuple[int, int]:
                key=lambda c: c[0] * MIN_MULS_SQR + c[1] * MIN_MULS_FMUL)
 
 
+def finv_least_ops(p: int) -> int:
+    """The least 32-bit operations of one inversion mod p: divsteps or
+    Fermat's shortest chain, whichever is fewer."""
+    sq, mu = finv_least_chain(p)
+    return min(FINV_DIVSTEP_OPS32, sq * MIN_MULS_SQR + mu * MIN_MULS_FMUL)
+
+
 # rho_round: one keccak-f[1600], 24 rounds on 25 64-bit lanes, each lane two
 # 32-bit words on the card's 32-bit integer pipes (64 a clock per SM, the
 # IMAD rate).  The least count a round, with sm_90's three-input LOP3 (any
@@ -210,11 +233,14 @@ def finv_least_chain(p: int) -> tuple[int, int]:
 # counted.  Bytes: xi, the four coordinates and the digest, 32 bytes each,
 # and the two flag bytes
 KECCAK_OPS32 = 24 * (20 + 10 + 50 + 48 + 50 + 2)
-# csrc/rho_round.cu's source spells out two-input operations on 64-bit lanes:
-# theta 20 + 5 + 25 xors and 5 rotations, rho 25 rotations, chi 25 x 3 (not,
-# and, xor), iota 1 = 156 a round, two 32-bit operations each (what nvcc
-# fuses into LOP3 is not counted); reported beside the bound as impl_muls32
-KECCAK_IMPL_OPS32 = 24 * 156 * 2
+# csrc/rho_round.cu runs a round on 25 threads of a warp, a lane each; as
+# written, a thread's round is a store of its lane and six loads (two
+# columns of the state, each two 16-byte loads and an 8-byte one), theta's
+# 16 xors, 2 funnel shifts and 4 xors, rho's 2 selects and 2 funnel shifts,
+# iota's 2 masks, 6 shuffles for pi and chi, and chi's 8 (not, and and two
+# xors a word): 49 32-bit operations (what nvcc fuses into LOP3 is not
+# counted, nor the __syncwarp); reported beside the bound as impl_muls32
+KECCAK_IMPL_OPS32 = 24 * 25 * 49
 RHO_BYTES = 6 * 32 + 2
 # The JAX package's rejection texts that phase 5 provokes ({k} a step, {b}
 # a batch index or step, as in halo_accumulation_tpu/acc.py and pcdl.py)
@@ -845,59 +871,89 @@ def phase_kernels(dev, pp, sm_mhz):
     return res
 
 
+def finv_edge_limbs(p: int) -> list[list[int]]:
+    """finv's edge lanes mod p as 18 limbs each: 0, 1, p - 1, 2^254 and
+    (p + 1) / 2 canonical; then lazy limbs of values at or above p up to the
+    boundary's 2^257: p (a lazy zero), p + 1, 2p - 1, 2^255 - 1 and 2^257 - 1
+    (clean limbs, limb 17 holding the bits from 255), and every limb at
+    0x8008 (the nearly clean bound) with limb 17 at 2."""
+    def clean(v):
+        return [(v >> (15 * i)) & 0x7FFF for i in range(17)] + [v >> 255]
+
+    vals = (0, 1, p - 1, 1 << 254, (p + 1) // 2, p, p + 1, 2 * p - 1, (1 << 255) - 1, (1 << 257) - 1)
+    return [clean(v) for v in vals] + [[0x8008] * 17 + [2]]
+
+
 def _finv_rows(dev, rng, sm_mhz, record) -> None:
     """finv held to its twin (FQ or FR pow_const(a, p - 2)) at the
-    FINV_CHECKED widths of both fields, lanes 0, 1, p - 1 first, and to
-    the int oracle's inverses; the path's shape (FINV_PATH_LANES) timed
-    over ten queued launches beside the bound of its least work, and one
-    launch at 1,024 and 65,536 lanes.  One row per field: finv (Fq,
+    FINV_CHECKED widths of both fields, the edge lanes (finv_edge_limbs)
+    first, and to the int oracle's inverses; every width timed over ten
+    queued launches (ms_by_width), 1,024 and 65,536 lanes also one launch
+    at a time (wide_ms); the path's shape (FINV_PATH_LANES) beside
+    the bound of an inversion's least work.  One row per field: finv (Fq,
     to_affine) and finv_fr (FR.inv of each round's challenge)."""
     from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
-    from halo_accumulation_tpu_torch.ops.field import FQ, FR
+    from halo_accumulation_tpu_torch.ops.field import FQ, FR, limb_array_to_ints
 
     for name, f in (("finv", FQ), ("finv_fr", FR)):
         widest = max(FINV_CHECKED)
-        vals = [0, 1, f.p - 1] + [int.from_bytes(rng.bytes(40), "little") % f.p for _ in range(61)]
-        a = f.from_ints(vals, dev)[:, torch.arange(widest, device=dev) % len(vals)].contiguous()
+        edges = finv_edge_limbs(f.p)
+        rand = f.from_ints([int.from_bytes(rng.bytes(40), "little") % f.p for _ in range(64 - len(edges))])
+        lanes = torch.cat([torch.tensor(edges, dtype=torch.int64).T, rand], 1)
+        vals = limb_array_to_ints(lanes.numpy())
+        a = lanes.to(dev)[:, torch.arange(widest, device=dev) % len(vals)].contiguous()
+        by_width = {}
         for n in FINV_CHECKED:
             an = a[:, :n].contiguous()
             got = ck.finv(an, f)
             _same(f"{name} n={n}", [got], [ck.finv_plain(an, f)], f)
             m = min(n, len(vals))
-            if f.to_ints(got[:, :m]) != [pow(v, f.p - 2, f.p) for v in vals[:m]]:
+            if f.to_ints(got[:, :m]) != [pow(v % f.p, f.p - 2, f.p) for v in vals[:m]]:
                 raise AssertionError(f"{name} at {n} lanes disagrees with the int oracle")
+            by_width[n] = cuda_time(lambda: [ck.finv(an, f) for _ in range(10)], 7, queued=True) / 10
         n = FINV_PATH_LANES
-        an = a[:, 1 : 1 + n].contiguous()  # from lane 1: nonzero
+        an = a[:, len(edges) : len(edges) + n].contiguous()  # random lanes
         sq, mu = finv_least_chain(f.p)
-        isq, imu = finv_binary_chain(f.p)
-        record(name, [ck.finv(an, f)], [ck.finv_plain(an, f)],
-               cuda_time(lambda: [ck.finv(an, f) for _ in range(10)], 7, queued=True) / 10,
+        record(name, [ck.finv(an, f)], [ck.finv_plain(an, f)], by_width[n],
                cuda_time(lambda: ck.finv_plain(an, f), 3),
-               bound(2 * FQ_BYTES * n, (sq * MIN_MULS_SQR + mu * MIN_MULS_FMUL) * n,
-                     (isq + imu) * IMPL_MULS_FMUL * n, sm_mhz),
-               field=f, lanes=n, least_chain={"squarings": sq, "multiplies": mu},
-               impl_chain={"squarings": isq, "multiplies": imu},
+               bound(2 * FQ_BYTES * n, finv_least_ops(f.p) * n, FINV_IMPL_OPS32 * n, sm_mhz),
+               field=f, lanes=n, edge_lanes=len(edges), ms_by_width=by_width,
+               least={"divstep_ops": FINV_DIVSTEP_OPS32,
+                      "fermat_chain": {"squarings": sq, "multiplies": mu,
+                                       "ops": sq * MIN_MULS_SQR + mu * MIN_MULS_FMUL}},
+               impl={"batches": FINV_BATCHES, "divsteps": FINV_BATCHES * FINV_BATCH, "ops": FINV_IMPL_OPS32},
                wide_ms={w: cuda_time(lambda aw=a[:, :w].contiguous(): ck.finv(aw, f), 5) for w in (1024, widest)},
-               note="a lane a thread: a chain of 330 dependent multiplies; at the path's few lanes its "
-                    "latency, not the rate, is what the card cannot beat")
+               note="divsteps, a lane a thread: at the path's few lanes one warp's dependent chain of "
+                    "20 batches; its latency, not the rate, is what the card cannot beat")
+
+
+def rho_cases(rng) -> list:
+    """rho_round's (xi, L, R) cases: RHO_RANDOM random triples, then L, R
+    or both the identity, L = -R with xi = 0, and the flag's boundary y =
+    (q - 1) / 2 (no flag) and (q + 1) / 2 (flagged) on either side with xi
+    = r - 1 and 8 (a boundary point need not lie on the curve: the message
+    takes only x and the flag)."""
+    from halo_accumulation_tpu_torch import fields as F
+
+    half = (F.Q - 1) // 2
+    pts = _base_points(rng, 2 * RHO_RANDOM)
+    cases = [(int.from_bytes(rng.bytes(40), "little") % F.R, pts[2 * i], pts[2 * i + 1]) for i in range(RHO_RANDOM)]
+    return cases + [(5, None, pts[0]), (6, pts[1], None), (7, None, None), (0, pts[2], F.p_neg(pts[2])),
+                    (F.R - 1, (pts[3][0], half), (pts[4][0], half + 1)),
+                    (8, (pts[5][0], half + 1), (pts[6][0], half))]
 
 
 def _rho_rows(dev, rng, sm_mhz, record) -> None:
     """rho_round held to its twin (ops/keccak.rho_round on the same card
-    tensors) on RHO_RANDOM random triples and the boundary cases, and the
-    kernel's challenge to the host transcript's on every case; timed over
-    ten queued launches beside its bound."""
-    from halo_accumulation_tpu_torch import fields as F
+    tensors) on the rho_cases, and the kernel's challenge to the host
+    transcript's on every case; timed over ten queued launches beside its
+    bound."""
     from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
     from halo_accumulation_tpu_torch.ops.field import FQ, FR
     from halo_accumulation_tpu_torch.utils import serialize as ser
     from halo_accumulation_tpu_torch.utils import transcript as tr
 
-    half = (F.Q - 1) // 2
-    pts = _base_points(rng, 2 * RHO_RANDOM)
-    cases = [(int.from_bytes(rng.bytes(40), "little") % F.R, pts[2 * i], pts[2 * i + 1]) for i in range(RHO_RANDOM)]
-    cases += [(5, None, pts[0]), (6, pts[1], None), (7, None, None), (0, pts[2], F.p_neg(pts[2])),
-              (F.R - 1, (pts[3][0], half), (pts[4][0], half + 1)), (8, (pts[5][0], half + 1), (pts[6][0], half))]
+    cases = rho_cases(rng)
     xs = FQ.from_ints([0 if P is None else P[0] for _, P, Q in cases for P in (P, Q)], dev)
     ys = FQ.from_ints([0 if P is None else P[1] for _, P, Q in cases for P in (P, Q)], dev)
     inf = torch.tensor([P is None for _, P, Q in cases for P in (P, Q)], device=dev)
@@ -916,8 +972,8 @@ def _rho_rows(dev, rng, sm_mhz, record) -> None:
            cuda_time(lambda: [ck.rho_round(*args) for _ in range(10)], 7, queued=True) / 10,
            cuda_time(lambda: ck.rho_round_plain(*args), 3),
            bound(RHO_BYTES, KECCAK_OPS32, KECCAK_IMPL_OPS32, sm_mhz), field=FR, cases=len(cases),
-           note="one thread: a serial keccak-f; the launch and the chain's latency, not the rate, "
-                "are what the card cannot beat")
+           note="one warp, a lane a thread: the launch and the rounds' dependent shuffles, not the "
+                "rate, are what the card cannot beat")
 
 
 def _raw_ints(t):

@@ -13,10 +13,10 @@ two more replace XLA glue of the JAX package that runs hot on the card
                                            (a column split across T threads)
   bucket_accum   <- _bucket_kernel_aff /   pad-axis bucket sums, row-permutation MSM
                     _bucket_kernel_proj    (a column split across T threads)
-  finv           <- Field.pow_const at     batched Fermat inversion, Fq or Fr (one
-                    Field.inv's root       lane a thread)
+  finv           <- Field.pow_const at     batched inversion by divsteps, Fq or Fr
+                    Field.inv's root       (one lane a thread)
   rho_round      <- pcdl._rho_round_device a round's challenge: the SHA3-256 of
-                    over ops/keccak.py     xi || L || R reduced mod r (one thread)
+                    over ops/keccak.py     xi || L || R reduced mod r (one warp)
 
 Each has a plain PyTorch twin here that runs the same field operations in
 the same order (the twins run ops/limbs.py's list form stacked over a batch
@@ -500,7 +500,7 @@ def bucket_accum(rows, src, T: int | None = None):
 
 
 def finv(a, field):
-    """Lane-wise inverse a^(p - 2) (0 for 0) of (18, n) limbs of `field`,
+    """Lane-wise inverse a^-1 (0 for 0) of (18, n) limbs of `field`,
     ops.field's FQ or FR."""
     if field is not FQ and field is not FR:
         raise ValueError(f"finv takes FQ or FR, got {field!r}")

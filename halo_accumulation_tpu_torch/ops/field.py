@@ -284,7 +284,7 @@ class Field:
     def inv(self, a):
         """Batched inversion on the device, 0 -> 0 (exact zero limbs), no
         host copy.  On a CUDA tensor every lane goes through the finv
-        kernel (Fermat, a^(p - 2)) in one launch: its lanes run side by
+        kernel (divsteps) in one launch: its lanes run side by
         side, so one launch costs about what the JAX package's product
         tree costs at its root alone, without the tree's 2 lg n levels of
         multiplies (PERF.md).  On the CPU, the JAX package's product tree,

@@ -381,7 +381,7 @@ def _open_fold_device(planes_ext, cs, zs, xi, k: int, c_dual: int, pads_dual, be
     host: per round one dual-route MSM over the extended basis (H' in two
     columns, the dot products as their scalars, so L and R come out
     whole), batch normalization, the challenge hashed on the device, its
-    inverse by Fermat on the device, and the field-only fold.
+    inverse on the device (finv), and the field-only fold.
 
     finalize None (a collapse segment, k = 4): afterwards the basis folds by
     16 with the segment's tensor coefficients (msm.fold_basis), so the next

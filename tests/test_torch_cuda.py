@@ -267,18 +267,22 @@ def test_zero_width_launches_nothing(cuda):
 @pytest.mark.parametrize("name", ["Fq", "Fr"])
 def test_finv_matches_twin(cuda, rng, name, n):
     """finv equals its twin, pow_const(a, p - 2), canonically, and the int
-    oracle's inverses (0 for 0), with 0, 1 and p - 1 in the first lanes;
-    one launch at width n."""
+    oracle's inverses (0 for 0), with chip_smoke's edge lanes first (0, 1,
+    p - 1, 2^254, (p + 1) / 2, and lazy limbs of values at or above p up to
+    2^257: a lazy 0 among them); one launch at width n."""
     f = FQ if name == "Fq" else FR
-    vals = ([0, 1, f.p - 1] + [int.from_bytes(rng.bytes(40), "little") % f.p for _ in range(61)])[:n]
-    a = f.from_ints(vals, cuda)[:, torch.arange(n, device=cuda) % len(vals)].contiguous()
+    edges = chip_smoke.finv_edge_limbs(f.p)
+    rand = f.from_ints([int.from_bytes(rng.bytes(40), "little") % f.p for _ in range(64 - len(edges))])
+    lanes = torch.cat([torch.tensor(edges, dtype=torch.int64).T, rand], 1)
+    vals = limb_array_to_ints(lanes.numpy())[:n]
+    a = lanes.to(cuda)[:, torch.arange(n, device=cuda) % lanes.shape[1]].contiguous()
     want = f.canon(ck.finv_plain(a, f))  # the twin's torch ops on the card
     ck.reset_launches()
     got = ck.finv(a, f)
     torch.cuda.synchronize()
     assert ck.launch_widths()["finv"] == {n: 1}
     assert torch.equal(f.canon(got), got) and torch.equal(got, want)
-    assert f.to_ints(got[:, : len(vals)]) == [pow(v, f.p - 2, f.p) for v in vals]
+    assert f.to_ints(got[:, : len(vals)]) == [pow(v % f.p, f.p - 2, f.p) for v in vals]
 
 
 def test_rho_round_matches_twin(cuda, rng):

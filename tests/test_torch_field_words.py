@@ -9,7 +9,9 @@ differences and small multiples) on random values and on the edges, to the
 port's own limb twins through the int64 boundary (load, operation,
 canonical store against FQ.canon), and its constants to literals of
 field.cuh.  It also counts the multiply's 32-bit products, the count that
-chip_smoke.py reports as IMPL_MULS_FMUL.  The card test of record is
+chip_smoke.py reports as IMPL_MULS_FMUL.  DivstepModel does the same for
+csrc/finv.cu's inversion by divsteps, held to Python's pow and counted
+against chip_smoke.FINV_IMPL_OPS32.  The card test of record is
 tests/test_torch_cuda.py, which holds the compiled kernels to the twins.
 """
 
@@ -398,22 +400,171 @@ def test_fr_instance_random_and_edges():
         assert m.store(m.load(limbs)) == want == [((v % r) >> (15 * i)) & 0x7FFF for i in range(L)]
 
 
+FINV_CU = FIELD_CUH.parent / "finv.cu"
+M30 = (1 << 30) - 1
+
+
+def s32(x: int) -> int:
+    """x mod 2^32 as a signed 32-bit value."""
+    x &= M32
+    return x - (1 << 32) if x >> 31 else x
+
+
+class DivstepModel:
+    """csrc/finv.cu, step for step, for the modulus p: load into words,
+    one conditional subtraction of p, nine signed 30-bit limbs, 20 batches
+    of 30 divsteps on the low words, each batch's matrix on (f, g) and on
+    (d, e) modulo p (p^-1 == 1 mod 2^30), then d sign(f) normalized into
+    [0, p) and stored as canonical limbs.  It checks the source's range
+    claims as it goes and counts the divsteps' 32-bit operations as written
+    (ops2: two-input), with three-input LOP3 and IADD3 (ops3), and the
+    matrices' products (products: none for p's limbs 0 and 5 to 8)."""
+
+    BATCH, BATCHES, LIMBS = 30, 20, 9
+
+    def __init__(self, p: int):
+        self.p = p
+        self.words = Model(p)
+        self.p30 = [(p >> (30 * i)) & M30 for i in range(self.LIMBS)]
+        assert self.p30[0] == 1 and self.p30[5:] == [0, 0, 0, 1 << 14]  # the header's facts
+        self.ops2 = self.ops3 = self.products = 0
+
+    def value(self, limbs) -> int:
+        return sum(x << (30 * i) for i, x in enumerate(limbs))
+
+    def divsteps(self, zeta, f, g):
+        u, v, q, r = 1, 0, 0, 1
+        for _ in range(self.BATCH):
+            assert f & 1
+            c1 = (zeta >> 31) & M32
+            c2 = -(g & 1) & M32
+            c3 = c1 & c2
+            g = (g + ((f ^ c1) & c2) - c3) & M32
+            q = (q + ((u ^ c1) & c2) - c3) & M32
+            r = (r + ((v ^ c1) & c2) - c3) & M32
+            zeta = s32((zeta ^ s32(c3)) - 1)
+            f = (f + (g & c3)) & M32
+            u = (u + (q & c3)) & M32
+            v = (v + (r & c3)) & M32
+            g >>= 1
+            u = (u << 1) & M32
+            v = (v << 1) & M32
+            self.ops2 += 4 + 12 + 2 + 6 + 3
+            self.ops3 += 4 + 6 + 2 + 6 + 3
+        t = [s32(x) for x in (u, v, q, r)]
+        assert abs(t[0]) + abs(t[1]) <= 1 << 30 and abs(t[2]) + abs(t[3]) <= 1 << 30
+        return zeta, t
+
+    def apply(self, a, b, t0, t1, m=None):
+        """(t0 a + t1 b + m p) / 2^30 on 30-bit limbs, carried in a signed
+        64-bit accumulator; the low 30 bits must be 0."""
+        c = t0 * a[0] + t1 * b[0] + (m if m is not None else 0)
+        assert c & M30 == 0
+        c >>= 30
+        out = []
+        for i in range(1, self.LIMBS):
+            c += t0 * a[i] + t1 * b[i]
+            self.products += 2
+            if m is not None:
+                c += self.p30[i] * m
+                self.products += self.p30[i] & (self.p30[i] - 1) != 0  # none for 0, 1 or 2^k
+            assert -(1 << 63) <= c < (1 << 63)
+            out.append(c & M30)
+            c >>= 30
+        assert -(1 << 31) <= c < (1 << 31)
+        self.products += 2  # limb 0's
+        return out + [c]
+
+    def update_de(self, d, e, t):
+        u, v, q, r = t
+        sd, se = -(d[8] < 0), -(e[8] < 0)
+        md, me = (u & sd) + (v & se), (q & sd) + (r & se)
+        md -= (u * d[0] + v * e[0] + md) & M30
+        me -= (q * d[0] + r * e[0] + me) & M30
+        assert -(1 << 31) <= md < (1 << 31) and -(1 << 31) <= me < (1 << 31)
+        nd, ne = self.apply(d, e, u, v, md), self.apply(d, e, q, r, me)
+        for x in (nd, ne):
+            assert -2 * self.p < self.value(x) < self.p
+        return nd, ne
+
+    def normalize(self, d, fsign):
+        add1, neg = -(d[8] < 0), -(fsign < 0)
+        d = [((x + (pi & add1)) ^ neg) - neg for x, pi in zip(d, self.p30)]
+        d = self.carry(d)
+        add2 = -(d[8] < 0)
+        return self.carry([x + (pi & add2) for x, pi in zip(d, self.p30)])
+
+    def carry(self, d):
+        d = list(d)
+        for i in range(1, self.LIMBS):
+            d[i] += d[i - 1] >> 30
+            d[i - 1] &= M30
+        return d
+
+    def inv(self, limbs):
+        """Canonical limbs of the inverse, and the final f and g."""
+        w = self.words.load(limbs)
+        v = value(w)
+        v = v - self.p if v >= self.p else v
+        g = [(v >> (30 * i)) & M30 for i in range(self.LIMBS)]
+        f, d, e, zeta = list(self.p30), [0] * self.LIMBS, [1] + [0] * (self.LIMBS - 1), -1
+        for _ in range(self.BATCHES):
+            zeta, t = self.divsteps(zeta, f[0], g[0])
+            d, e = self.update_de(d, e, t)
+            f, g = self.apply(f, g, t[0], t[1]), self.apply(f, g, t[2], t[3])
+        d = self.normalize(d, f[8])
+        assert all(0 <= x <= M30 for x in d) and self.value(d) < self.p
+        return self.words.store(self.words.from_chunks(d, 30)), self.value(f), self.value(g)
+
+
 @pytest.mark.parametrize("p", [Q, F.R], ids=["Fq", "Fr"])
-def test_finv_chain_on_words(p):
-    """csrc/finv.cu's exponent chain on the model's words: from the top bit
-    of p - 2 (bit 254), 254 squarings and a multiply at every set bit,
-    words 7 to 0 as exp_word gives them (word 0 all ones, word 1 c's word 1
-    less one); equal to pow(a, p - 2, p), 0 for 0."""
-    m = Model(p)
-    e_words = [0xFFFFFFFF, m.c_words[1] - 1] + list(m.q_words[2:])
-    assert value(e_words) == p - 2
-    rnd = random.Random(14)
-    for v in [0, 1, p - 1, rnd.randrange(p), (1 << 255) - 1]:
-        a = to_words(v)
-        acc = a
-        for j in range(NW - 1, -1, -1):
-            for b in range(29 if j == NW - 1 else 31, -1, -1):
-                acc = m.mul(acc, acc)
-                if (e_words[j] >> b) & 1:
-                    acc = m.mul(acc, a)
-        assert m.store(acc) == [((pow(v, p - 2, p)) >> (15 * i)) & 0x7FFF for i in range(L)]
+def test_finv_divsteps_on_words(p):
+    """csrc/finv.cu's divsteps on the model's words equal pow(v, p - 2, p)
+    (0 for 0) on 200 random values and the edges: 0, 1, 2, p - 1, (p + 1) /
+    2, every 2^k for k <= 254, chip_smoke's finv edge lanes (lazy limbs of
+    values at or above p, up to 2^257), lazy limbs of random values below
+    2^257 and fmul's nearly clean edge lanes.  After the 600 divsteps g is
+    0 and f is +-1 (p for 0)."""
+    m = DivstepModel(p)
+    rnd = random.Random(15)
+    rng = np.random.default_rng(16)
+    lanes = [lazy_limbs(v, rng) for v in [rnd.randrange(p) for _ in range(200)] + [0, 1, 2, p - 1, (p + 1) // 2]
+             + [1 << k for k in range(255)] + [rnd.randrange(1 << 257) for _ in range(20)]]
+    lanes += chip_smoke.finv_edge_limbs(p) + EDGE_LIMBS
+    for limbs in lanes:
+        v = sum(x << (15 * i) for i, x in enumerate(limbs)) % p
+        got, f, g = m.inv(limbs)
+        assert got == [(pow(v, p - 2, p) >> (15 * i)) & 0x7FFF for i in range(L)], v
+        assert g == 0 and f in ((p,) if v == 0 else (1, -1))
+
+
+def test_finv_op_count_matches_chip_smoke():
+    """The model's count of one inversion is chip_smoke's FINV_IMPL_OPS32
+    (20 batches: 600 divsteps at 27 operations as written, 80 products a
+    batch); a divstep with three-input LOP3 and IADD3 is DIVSTEP_OPS, and
+    the bound's least work, 590 divsteps at that count and their 20
+    batches' products, is below both Fermat's shortest chain and the
+    kernel's count."""
+    m = DivstepModel(Q)
+    m.inv([5] + [0] * (L - 1))
+    assert m.ops2 + m.products == chip_smoke.FINV_IMPL_OPS32 == 20 * (30 * 27 + 80)
+    assert m.ops2 == 600 * chip_smoke.DIVSTEP_IMPL_OPS and m.ops3 == 600 * chip_smoke.DIVSTEP_OPS
+    assert m.products == 20 * chip_smoke.MATRIX_MULS
+    least = chip_smoke.FINV_DIVSTEP_OPS32
+    assert least == 590 * 21 + 20 * 80
+    for p in (Q, F.R):
+        sq, mu = chip_smoke.finv_least_chain(p)
+        assert (sq, mu) == (255, 34)
+        assert chip_smoke.finv_least_ops(p) == least < sq * chip_smoke.MIN_MULS_SQR + mu * chip_smoke.MIN_MULS_FMUL
+    assert least <= chip_smoke.FINV_IMPL_OPS32
+
+
+def test_finv_constants_are_literals_of_finv_cu():
+    """The model's batch and divstep counts are finv.cu's, and its header
+    names the bound they meet (590 divsteps)."""
+    src = FINV_CU.read_text()
+    assert re.search(rf"\bkBatch = {DivstepModel.BATCH};", src)
+    assert re.search(rf"\bkBatches = {DivstepModel.BATCHES};", src)
+    assert re.search(rf"\bkLimbs = {DivstepModel.LIMBS};", src)
+    assert DivstepModel.BATCH * DivstepModel.BATCHES >= chip_smoke.FINV_DIVSTEPS == 590
+    assert "590 divsteps" in src and "741" in src
