@@ -50,19 +50,32 @@ Phases, each printing one JSON line:
      .chain_cache/chain_16384_10.bin byte for byte (the JAX package built
      that file from the same rng; the depth is cut from its 10 steps to 2,
      and step 1 already folds [acc, q]), and none may take open_'s _safe
-     rebuild.  Then one device open at n = 16384 under torch.profiler: its
-     device-to-host copies are counted (expected: one, the proof), and its
-     synchronizing calls by source line (expected: none inside the rounds).
+     rebuild.  Each device open runs as one captured CUDA graph
+     (runtime.graphed, the default).  Then one device open at n = 16384
+     under torch.profiler: its device-to-host copies (expected: one, the
+     proof), host-to-device copies (one, the graph's static input) and
+     graph replays (one) are counted, and its synchronizing calls by source
+     line; the same open with its body run eagerly under
+     torch.cuda.set_sync_debug_mode("error") must not sync.  Then api: the
+     package docstring's example through the façade (setup, commit, open,
+     check, verify_chain).
   5. chain: .chain_cache/chain_16384_10.bin through verify_chain and
-     decide_many, first under sortrows and then under rowperm (both must
-     accept; wall times of the first run and the median of three more,
-     and under sortrows three more with the host ops forced onto the
-     Python oracle), and tampered copies and one-step prefixes (must reject
-     with the reference's messages, REJECT_TEXTS).
+     decide_many, first under sortrows (each verdict one CUDA graph) and
+     then under rowperm (eager), both must accept; wall times of the first
+     run and the median of three more, and under sortrows three more with
+     the host ops forced onto the Python oracle; then tampered copies of
+     the same shape (replays of the good runs' graphs: the stale-input
+     check) and one-step prefixes, which must reject with the reference's
+     messages, REJECT_TEXTS.
   6. profile: one more sortrows run of each chain path, and one prover
      step (build_chain with k = 1) under each of the prove phase's
      settings, under torch.profiler and under cProfile (tables in
      build/profile/).
+  7. graphs: the same paths with graphs on and off
+     (runtime._eager_graphs) in turns: warm host seconds, then device
+     busy, idle share and device events under torch.profiler; every
+     verdict body run eagerly under set_sync_debug_mode("error"); each
+     graph's capture seconds; the card's reserved memory at the end.
 Every path runs with the launch counts set to 0 just before it and read
 just after it, and must launch the kernels its pipeline runs: bucket_accum
 on the rowperm paths, bucket_masked on the sortrows paths, finv and
@@ -85,6 +98,7 @@ import pstats
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -114,6 +128,7 @@ ACCUM_TOP_SHAPE = (48, 1024)  # pad, columns of the rowperm MSM's folded top win
 TWIN_MAX_LANES = 1 << 18  # widest bucket_masked_plain run (T * cols lanes): its multiplies take 16 GB at 2^20
 N = 16384
 PROVE_STEPS = 2
+GRAPH_REPS = (7, 3)  # warm runs per mode of the graphs phase: chain paths, prover steps
 SEED = 20261016
 MEM_RATE = 3.35e12  # H100 SXM HBM3, bytes/s
 IMAD_PER_CLOCK_SM = 64  # 32-bit integer multiply(-add)s per clock per SM, compute capability 9.0
@@ -1037,19 +1052,75 @@ def phase_prove(pp, smi, launches, widths):
     return out
 
 
+def _runtime_events(prof) -> tuple[list, Counter]:
+    """A torch.profiler trace's device events (start us, end us, name) in
+    time order, and its host calls that launch device work (cudaLaunchKernel,
+    cudaGraphLaunch, ...) counted by name.  Read from the raw kineto events:
+    prof.events() builds a tree over every host op, which takes minutes for
+    a prover step's million of them."""
+    from torch.autograd import DeviceType
+
+    dev, launches = [], Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            dev.append((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name()))
+        elif e.name().startswith("cu") and ("Launch" in e.name() or "Memcpy" in e.name()):
+            launches[e.name()] += 1
+    return sorted(dev), launches
+
+
+def _busy_us(dev) -> float:
+    """The union of the device intervals, in us."""
+    busy, hi = 0.0, float("-inf")
+    for start, end, _ in dev:
+        busy += max(0.0, end - max(start, hi))
+        hi = max(hi, end)
+    return busy
+
+
+@contextlib.contextmanager
+def strict_bodies(names: list):
+    """Every graphed body in the block runs eagerly on card inputs under
+    torch.cuda.set_sync_debug_mode("error") (after one warm run that makes
+    the cached device constants): a host sync inside a body raises.  names
+    collects the bodies run."""
+    from halo_accumulation_tpu_torch import runtime
+
+    graphed = runtime.graphed
+
+    def strict(name, shape_key, body, args, device, holds=()):
+        args = [a.to(device) for a in args]
+        body(*args)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = body(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        names.append(name)
+        return out
+
+    runtime.graphed = strict
+    try:
+        yield names
+    finally:
+        runtime.graphed = graphed
+
+
 def phase_open_copies(pp, smi) -> dict:
     """One device-transcript open at n = N (a hiding opening of a random
-    polynomial of degree N - 1, under the defaults) with torch.profiler
+    polynomial of degree N - 1, under the defaults), its graph captured
+    already, with torch.profiler and torch.cuda.set_sync_debug_mode("warn")
     around _open_device: its device-to-host copies ("Memcpy DtoH" events;
     expected one, the proof), its host-to-device copies ("Memcpy HtoD";
-    expected one, H' and xi_0 before the first round), and the synchronizing
-    calls that torch.cuda.set_sync_debug_mode("warn") reports, by the source
-    line that made them and in all and inside the rounds
-    (_open_fold_device: expected none).  The opening must check."""
+    expected one, H', xi_0 and z into the graph's static input), its graph
+    replays (cudaGraphLaunch; expected one) and the synchronizing calls by
+    the source line that made them (those two copies).  Then the same open
+    with its body run eagerly under set_sync_debug_mode("error"): nothing
+    inside the body may sync.  Both openings must check."""
     import collections
     import warnings
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from halo_accumulation_tpu_torch import fields as F
@@ -1063,26 +1134,13 @@ def phase_open_copies(pp, smi) -> dict:
     cd = FR.from_ints(coeffs, pp.device)
     C = pcdl.commit(cd, N - 1, w, pp)
     seen = {}
-    inner, fold = pcdl._open_device, pcdl._open_fold_device
-    live = {"rec": []}  # the warnings recorder's list, filled as the open runs
-    in_rounds = [0]
-
-    def syncs(ws):
-        return [w for w in ws if "synchroniz" in str(w.message)]
-
-    def fold_traced(*args, **kwargs):
-        n0 = len(live["rec"])
-        try:
-            return fold(*args, **kwargs)
-        finally:
-            in_rounds[0] += len(syncs(live["rec"][n0:]))
+    inner = pcdl._open_device
 
     def traced(*args, **kwargs):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             with warnings.catch_warnings(record=True) as rec:
                 warnings.simplefilter("always")
-                live["rec"] = rec
                 torch.cuda.set_sync_debug_mode("warn")
                 t = time.perf_counter()
                 try:
@@ -1090,28 +1148,36 @@ def phase_open_copies(pp, smi) -> dict:
                 finally:
                     torch.cuda.set_sync_debug_mode(0)
                 seen["wall_s"] = time.perf_counter() - t
-        names = [e.name() for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
-        seen["memcpy_dtoh"] = sum("DtoH" in n for n in names)
-        seen["memcpy_htod"] = sum("HtoD" in n for n in names)
-        seen["sync_warnings"] = len(syncs(rec))
+        dev, launches = _runtime_events(prof)
+        seen["memcpy_dtoh"] = sum("DtoH" in name for _, _, name in dev)
+        seen["memcpy_htod"] = sum("HtoD" in name for _, _, name in dev)
+        seen["graph_launches"] = launches["cudaGraphLaunch"]
+        seen["host_launches"] = dict(launches)
+        syncs = [w for w in rec if "called a synchronizing CUDA operation" in str(w.message)]
+        seen["sync_warnings"] = len(syncs)
         seen["sync_warnings_by_line"] = dict(collections.Counter(
-            f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in syncs(rec)).most_common())
+            f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in syncs).most_common())
         return res
 
-    pcdl._open_device = traced
-    pcdl._open_fold_device = fold_traced
-    try:
-        with safe_rebuilds() as rebuilds:
+    with safe_rebuilds() as rebuilds:
+        pcdl._open_device = traced
+        try:
             pi = pcdl.open_(np.random.default_rng(3), cd, C, N - 1, z, w, pp, v=v)
-    finally:
-        pcdl._open_device, pcdl._open_fold_device = inner, fold
-    pcdl.check(C, N - 1, z, v, pi, pp)
-    out = {"phase": "open_copies", "n": N, "card": smi, **seen, "sync_warnings_in_rounds": in_rounds[0],
+        finally:
+            pcdl._open_device = inner
+        pcdl.check(C, N - 1, z, v, pi, pp)
+        with strict_bodies([]) as names:
+            pi2 = pcdl.open_(np.random.default_rng(3), cd, C, N - 1, z, w, pp, v=v)
+    if pi2.serialize() != pi.serialize():
+        raise AssertionError("the device open's replay and its eager body wrote different proofs")
+    out = {"phase": "open_copies", "n": N, "card": smi, **seen, "bodies_sync_free": names,
            "safe_rebuilds": len(rebuilds)}
     emit(out)
-    if seen.get("memcpy_dtoh") != 1 or in_rounds[0] or rebuilds:
-        raise AssertionError(f"device open: {seen.get('memcpy_dtoh')} device-to-host copies (expected 1), "
-                             f"{in_rounds[0]} syncs inside the rounds (expected 0), {len(rebuilds)} _safe rebuilds")
+    if (seen.get("memcpy_dtoh"), seen.get("memcpy_htod"), seen.get("graph_launches")) != (1, 1, 1) or rebuilds \
+            or names != ["open"]:
+        raise AssertionError(f"device open: {seen.get('memcpy_dtoh')} device-to-host copies, "
+                             f"{seen.get('memcpy_htod')} host-to-device copies, {seen.get('graph_launches')} graph "
+                             f"replays (expected 1, 1, 1), {len(rebuilds)} _safe rebuilds, bodies {names}")
     return out
 
 
@@ -1126,12 +1192,17 @@ def _expect_reject(fn, msg: str) -> None:
 
 
 def _tampered(d, qss, accs, pp):
-    """[(expected text, call)]: two tampered chains (v of the last step, v
-    of the first decider's claim), then one field each of a one-step
-    prefix.  Two cases tamper the verifier's key instead, as a proof that
-    does not open under it: G0 and G1 swapped reach only the U_0 rows, G2
-    and G3 swapped only the final decider's deferred MSM.  The texts are
-    the JAX package's (REJECT_TEXTS)."""
+    """[(expected text, call)]: first two copies of the whole chain, the
+    shape of the good runs before them, so each replays their verdict
+    graph (the stale-input check: a replay that read the good chain would
+    accept): c of step 4's fresh claim, which only its row equation reads,
+    and v of the first accumulator, which the first decider's row reads.
+    Then two tampered chains (v of the last step, v of the first decider's
+    claim), then one field each of a one-step prefix.  Two cases tamper
+    the verifier's key instead, as a proof that does not open under it: G0
+    and G1 swapped reach only the U_0 rows, G2 and G3 swapped only the
+    final decider's deferred MSM.  The texts are the JAX package's
+    (REJECT_TEXTS)."""
     import dataclasses
 
     from halo_accumulation_tpu_torch import chain
@@ -1151,8 +1222,12 @@ def _tampered(d, qss, accs, pp):
 
     a0, q0 = accs[0], qss[0][0]
     short = dataclasses.replace(q0, pi=dataclasses.replace(q0.pi, Ls=q0.pi.Ls[:-1], Rs=q0.pi.Rs[:-1]))
+    q4 = qss[4][1]
+    q4_c = dataclasses.replace(q4, pi=dataclasses.replace(q4.pi, c=(q4.pi.c + 1) % F.R))
     T = REJECT_TEXTS
     return [
+        (T["row"].format(b=8), fast(qss[:4] + [[qss[4][0], q4_c]] + qss[5:], accs)),
+        (T["row"].format(b=0), lambda: chain.verify_chain_slow([bumped(a0)] + accs[1:], pp)),
         (T["v"].format(k=len(accs) - 1), fast(qss, accs[:-1] + [bumped(accs[-1])])),
         (T["row"].format(b=0), lambda: chain.verify_chain_slow([bumped(a0), accs[1]], pp)),
         (T["c_bar"].format(k=0), fast(qss[:1], [dataclasses.replace(a0, C_bar=accs[1].C_bar)])),
@@ -1218,7 +1293,6 @@ def phase_profile(paths, warm, smi) -> None:
     the union of the trace's device intervals (kernels, copies, memsets);
     idle share is 1 - busy / wall, against the profiled wall time and,
     where warm holds the path, against its unprofiled warm median."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
@@ -1231,17 +1305,12 @@ def phase_profile(paths, warm, smi) -> None:
             fn()
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t
-        # the raw kineto events: prof.events() builds a tree over every host
-        # op, which takes minutes for a prover step's million of them
-        dev = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
-                     for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA)
+        dev, launches = _runtime_events(prof)
         if not dev:
             raise AssertionError(f"{path}: the trace holds no device activity")
-        busy_us, hi = 0.0, float("-inf")
+        busy_us = _busy_us(dev)
         items: dict[str, list] = {}
         for start, end, name in dev:
-            busy_us += max(0.0, end - max(start, hi))
-            hi = max(hi, end)
             it = items.setdefault(name, [0, 0.0])
             it[0] += 1
             it[1] += end - start
@@ -1268,11 +1337,104 @@ def phase_profile(paths, warm, smi) -> None:
                        if fn_name == "succinct_check_parts" and f.endswith("pcdl.py"))
         emit({"phase": "profile", "path": path, "card": smi, "wall_s": prof_wall,
               "unprofiled_warm_s": warm.get(path), "device_busy_ms": busy_us / 1e3,
-              "device_events": len(dev), "idle_share": 1 - busy_s / prof_wall,
+              "device_events": len(dev), "host_launches": dict(launches), "idle_share": 1 - busy_s / prof_wall,
               "idle_share_unprofiled": 1 - busy_s / warm[path] if path in warm else None,
               "top_device_ms": [[n[:80], c, us / 1e3] for n, (c, us) in top[:8]], "kernel_ms": kernel_ms,
               "host_cprofile_s": st.total_tt, "host_replays_s": replay_s,
               "host_top_own_s": [[name, tt] for tt, _, name in own[:8]]})
+
+
+def _profiled(fn) -> dict:
+    """One run of fn under torch.profiler: its wall seconds, device busy ms
+    (the union of the device intervals), device events and the host calls
+    that launched them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t
+    dev, launches = _runtime_events(prof)
+    if not dev:
+        raise AssertionError("the trace holds no device activity")
+    busy_ms = _busy_us(dev) / 1e3
+    return {"profiled_wall_s": prof_wall, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / 1e3 / prof_wall,
+            "device_events": len(dev), "host_launches": dict(launches)}
+
+
+def phase_graphs(pp, smi, d, qss, accs) -> None:
+    """Graphs on (the default) against graphs off (runtime._eager_graphs)
+    on verify_chain, decide_many and one prover step per prove setting:
+    GRAPH_REPS warm runs of each in turns (on, off, on, off, ...), host
+    seconds; then one run of each under torch.profiler (device busy, idle
+    share, device events, launching host calls).  Then every captured
+    body of the chain paths run eagerly under set_sync_debug_mode("error")
+    (strict_bodies), each graph's warm-up and capture seconds, and the
+    card's reserved memory after every phase."""
+    from halo_accumulation_tpu_torch import chain, runtime
+
+    paths = {"verify_chain": (None, lambda: chain.verify_chain_fast(d, qss, accs, pp)),
+             "decide_many": (None, lambda: chain.verify_chain_slow(accs, pp))}
+    for path, impl, open_device, _ in PROVES:
+        paths[f"{path}_1step"] = ((impl, open_device),
+                                  lambda: chain.build_chain(np.random.default_rng(7), N, 1, pp))
+    modes = {"graphs": contextlib.nullcontext, "eager": runtime._eager_graphs}
+    out = {}
+    for path, (setting, fn) in paths.items():
+        reps = GRAPH_REPS[0 if setting is None else 1]
+        with contextlib.ExitStack() as stack:
+            if setting is not None:
+                stack.enter_context(env("HALO_TPU_MSM_IMPL", setting[0]))
+                stack.enter_context(env("HALO_TPU_OPEN_DEVICE", setting[1]))
+            fn()
+            walls = {m: [] for m in modes}
+            for _ in range(reps):
+                for m, ctx in modes.items():
+                    with ctx():
+                        walls[m].append(wall(fn))
+            out[path] = {}
+            for m, ctx in modes.items():
+                with ctx():
+                    prof = _profiled(fn)
+                med = float(np.median(walls[m]))
+                out[path][m] = {"warm_s_median": med, "warm_s_min": min(walls[m]), "warm_s_max": max(walls[m]),
+                                "warm_s": walls[m], **prof,
+                                "idle_share_warm": 1 - prof["device_busy_ms"] / 1e3 / med}
+    with strict_bodies([]) as names:
+        for path in ("verify_chain", "decide_many"):
+            paths[path][1]()
+    if names != ["verdicts", "verdicts"]:
+        raise AssertionError(f"the chain paths ran the bodies {names}, expected two verdict graphs")
+    emit({"phase": "graphs", "card": smi, "n": N, "reps": GRAPH_REPS, **out, "bodies_sync_free": names,
+          "graphs_held": len(runtime.graphs),
+          "capture_s": [[k[0], k[1], "the URS" if g.holds[0] is pp else "a tampered URS", g.capture_s]
+                        for k, g in runtime.graphs.items()],
+          "memory_reserved_bytes": torch.cuda.memory_reserved(),
+          "max_memory_reserved_bytes": torch.cuda.max_memory_reserved()})
+
+
+def phase_api(smi) -> None:
+    """The package docstring's example through api, the façade a user
+    calls: setup at N (the card), commit, open and check a plain claim of
+    degree N - 1, verify the chain; a wrong value must be rejected."""
+    from halo_accumulation_tpu_torch import api, chain
+
+    pp = api.setup(N)
+    rng = np.random.default_rng(0)
+    p = [int.from_bytes(rng.bytes(31), "little") for _ in range(5)]
+    z = 7
+    C = api.commit(p, N - 1, None, pp)
+    t = time.perf_counter()
+    pi = api.open(rng, p, C, N - 1, z, None, pp)
+    open_s = time.perf_counter() - t
+    api.check(C, N - 1, z, api.eval_poly(p, z), pi, pp)
+    _expect_reject(lambda: api.check(C, N - 1, z, api.eval_poly(p, z) + 1, pi, pp),
+                   REJECT_TEXTS["row"].format(b=0))
+    d, qss, accs = chain.load_chain(CHAIN)
+    api.verify_chain(d, qss, accs, pp)
+    emit({"phase": "api", "card": smi, "n": N, "device": str(pp.device), "open_s": open_s, "checked": True})
 
 
 def main() -> int:
@@ -1290,6 +1452,7 @@ def main() -> int:
     widths: dict[str, dict] = {}
     phase_prove(pp, smi, launches, widths)
     phase_open_copies(pp, smi)
+    phase_api(smi)
     paths, warm = phase_chain(pp, smi, launches, widths)
     with env("HALO_TPU_MSM_IMPL", "sortrows"):
         phase_profile(paths, warm, smi)
@@ -1298,6 +1461,7 @@ def main() -> int:
     for path, impl, open_device, _ in PROVES:
         with env("HALO_TPU_MSM_IMPL", impl), env("HALO_TPU_OPEN_DEVICE", open_device):
             phase_profile({f"{path}_1step": lambda: chain.build_chain(np.random.default_rng(7), N, 1, pp)}, {}, smi)
+    phase_graphs(pp, smi, *chain.load_chain(CHAIN))
     from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
 
     kernels = []

@@ -15,18 +15,28 @@ The protocol's single-point host ops run on a native C++ backend
 math of its `ops/limbs.py` lives in `csrc/field.cuh` and `csrc/curve.cuh`,
 and the Pallas kernels' wrappers become `ops/cuda_kernels.py`.
 
-Entry points run on the card unless the caller names the CPU:
+Entry points run on the card unless the caller names the CPU.  `api` holds
+the JAX package's façade, verb for verb:
 
     import numpy as np
-    from halo_accumulation_tpu_torch import build_chain, get_pp, load_chain, verify_chain_fast
-    params = get_pp(16384)                     # on "cuda"; get_pp(n, "cpu") for the CPU
-    d, qss, accs = build_chain(np.random.default_rng(7), 16384, 2, params)
-    verify_chain_fast(d, qss, accs, params)   # raises on reject
+    from halo_accumulation_tpu_torch import api, load_chain
+    pp = api.setup(16384)                     # on "cuda"; api.setup(n, "cpu") for the CPU
+    rng = np.random.default_rng(0)
+    p = [int.from_bytes(rng.bytes(31), "little") for _ in range(5)]
+    d, z = 16383, 7
+    C = api.commit(p, d, None, pp)
+    pi = api.open(rng, p, C, d, z, None, pp)
+    api.check(C, d, z, api.eval_poly(p, z), pi, pp)   # raises on reject
     d, qss, accs = load_chain(".chain_cache/chain_16384_10.bin")
+    api.verify_chain(d, qss, accs, pp)                 # raises on reject
+
+On the card the verdicts of `verify_chain` and `decide_many` and each
+device-transcript open run as captured CUDA graphs (`runtime.graphed`).
 
 It imports torch and never jax.
 """
 
+from halo_accumulation_tpu_torch import api  # noqa: E402
 from halo_accumulation_tpu_torch.chain import (  # noqa: E402
     build_chain,
     load_chain,

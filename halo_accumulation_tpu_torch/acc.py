@@ -25,7 +25,7 @@ from halo_accumulation_tpu_torch import fields as F
 from halo_accumulation_tpu_torch import hostops as H
 from halo_accumulation_tpu_torch import pcdl
 from halo_accumulation_tpu_torch import pp as pp_mod
-from halo_accumulation_tpu_torch.ops import poly as poly_mod
+from halo_accumulation_tpu_torch.ops import msm as msm_mod, poly as poly_mod
 from halo_accumulation_tpu_torch.ops.field import FR
 from halo_accumulation_tpu_torch.utils import serialize as ser
 from halo_accumulation_tpu_torch.utils import transcript as tr
@@ -206,7 +206,9 @@ def verify_chain(D: int, qss: list[list[Instance]], accs: list[Accumulator], pp:
       * every row equation - each step's succinct checks, each step's
         U_0 == Commit(h_0) (3 points a row) and the final decider's
         succinct check - runs as ONE batched row MSM,
-      * the final decider's deferred n-point MSM and U equality follow,
+      * the final decider's deferred n-point MSM and U equality follow;
+        under sortrows with at most 32 succinct checks and 32 steps, all
+        of it is one CUDA graph on the card (pcdl.verdicts_device),
       * per-step challenges and equalities run on the host meanwhile,
       * one copy brings every device verdict back.
 
@@ -227,8 +229,10 @@ def verify_chain(D: int, qss: list[list[Instance]], accs: list[Accumulator], pp:
     rows = [(p[1], p[2]) for p in parts]
     rows += [([g0, g1, a.pi_V.U], [a.pi_V.h[0], a.pi_V.h[1], F.R - 1]) for a in accs]
     rows.append((dpts, dscs))
-    ok_rows = pcdl._rows_and_isinf(*pcdl.rows_tensors(rows, pp.device))
-    ok_deferred = pcdl.deferred_device([dh], [last.pi.U], last.d, pp)
+    # one CUDA graph under the JAX package's condition for its one-program
+    # verdict (_verify_chain_fused); eager otherwise
+    fused = msm_mod._impl() == "sortrows" and len(flat) <= 32 and len(accs) <= 32
+    ok_dev = pcdl.verdicts_device(rows, [dh], [last.pi.U], last.d, pp, graph=fused)
 
     # ---- 2. per-step host bookkeeping --------------------------------------
     results = [(p[0], flat[b][4].U) for b, p in enumerate(parts)]
@@ -246,8 +250,7 @@ def verify_chain(D: int, qss: list[list[Instance]], accs: list[Accumulator], pp:
             raise ValueError(f"h(z) != v at step {k}")
 
     # ---- 3. one copy of every device verdict -------------------------------
-    ok_rows[-1] &= ok_deferred[0]
-    combined = ok_rows.cpu().tolist()
+    combined = ok_dev.cpu().tolist()
     nS = len(flat)
     for b in range(nS):
         if not combined[b]:

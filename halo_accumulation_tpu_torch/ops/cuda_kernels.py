@@ -24,10 +24,10 @@ axis, in the JAX package's lazy 15-bit limbs).  The kernels compute on
 8 x 32-bit words (csrc/field.cuh) and store canonical limbs, so a kernel's
 output equals FQ.canon of its twin's, limb for limb.  A wrapper takes the
 twin for tensors on the CPU and launches the kernel for CUDA tensors; any
-other device raises.  Each launch
-adds one to its kernel's `launches` count and to its count at that width
-(`widths`), and only a launch does: a call of width 0 has nothing to compute
-and launches nothing.
+other device raises.  Each launch adds one to its kernel's `launches`
+count and to its count at that width (`widths`), and only a launch does:
+a call of width 0 has nothing to compute and launches nothing.  A replay
+of a CUDA graph adds the launches its capture recorded (add_launches).
 """
 
 from __future__ import annotations
@@ -179,6 +179,34 @@ def launch_counts() -> dict[str, int]:
 def launch_widths() -> dict[str, dict[int, int]]:
     """{kernel: {width: launches}} since reset_launches(), widths ascending."""
     return {name: dict(sorted(k.widths.items())) for name, k in KERNELS.items()}
+
+
+# A graph's launches: a Python wrapper counts when it runs, which under a
+# CUDA graph is at capture only (runtime.graphed).  The capture's counts are
+# taken back (its launches run nothing) and kept with the graph, and every
+# replay adds them again, so the counts stay those of the eager path.
+
+
+def launch_record() -> dict:
+    """Every kernel's launches and launches by width, now."""
+    return {name: (k.launches, Counter(k.widths)) for name, k in KERNELS.items()}
+
+
+def launches_since(mark: dict) -> dict:
+    """The launches made since launch_record() returned mark."""
+    return {name: (k.launches - mark[name][0], k.widths - mark[name][1]) for name, k in KERNELS.items()}
+
+
+def restore_launches(mark: dict) -> None:
+    for name, (n, widths) in mark.items():
+        KERNELS[name].launches = n
+        KERNELS[name].widths = Counter(widths)
+
+
+def add_launches(delta: dict) -> None:
+    for name, (n, widths) in delta.items():
+        KERNELS[name].launches += n
+        KERNELS[name].widths.update(widths)
 
 
 # -- plain twins ----------------------------------------------------------------

@@ -23,12 +23,17 @@ commit :99, open :120, succinct_check :252, check :323):
         (`ck.rho_round`), and every four rounds the basis folds by 16
         (`msm.fold_basis`), so later rounds run at 1/16 of the width.  The
         whole open makes one device-to-host copy.
+  * On the card the JAX package's single-dispatch programs are CUDA
+    graphs (`runtime.graphed`): the device open (`_open_rounds`, its
+    `ofd4`/`ofdF` segments) and the deciders' verdicts (`_verdicts`: row
+    MSM, deferred n-point MSM, U equality; its `_deciders_fused`).
 
 Proof objects live on the host as canonical ints.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass
 
@@ -37,6 +42,7 @@ import torch
 from halo_accumulation_tpu_torch import fields as F
 from halo_accumulation_tpu_torch import hostops as H
 from halo_accumulation_tpu_torch import pp as pp_mod
+from halo_accumulation_tpu_torch import runtime
 from halo_accumulation_tpu_torch.ops import cuda_kernels as ck, curve as cv, msm as msm_mod, poly as poly_mod
 from halo_accumulation_tpu_torch.ops.field import FR, I64, L, ints_to_limb_array, limb_array_to_ints
 from halo_accumulation_tpu_torch.utils import serialize as ser
@@ -231,10 +237,10 @@ def open_(rng, coeffs, C: Point, d: int, z: int, w: int | None, pp: pp_mod.Publi
     cs = coeffs
     if k < n:
         cs = torch.cat([cs, FR.zeros((n - k,), dev)], dim=1)
-    zs = poly_mod.powers(zl, n)
     if (n > msm_mod._LADDER_MAX and not _safe and msm_mod._sortrows(n) and H_prime is not None
             and os.environ.get("HALO_TPU_OPEN_DEVICE", "1") != "0"):
-        return _open_device(rng, orig_coeffs, cs, zs, C, d, z, w, pp, C_bar, w_prime, xi, H_prime)
+        return _open_device(rng, orig_coeffs, cs, C, d, z, w, pp, C_bar, w_prime, xi, H_prime)
+    zs = poly_mod.powers(zl, n)
     t = FR.from_int(1, (n,), dev)
     Ls, Rs, flags = [], [], []
     m = n // 2
@@ -312,46 +318,22 @@ def _open_round_fold(cs, zs, t, m: int, xi, xi_inv):
 _COLLAPSE_MIN = 2048  # collapse segments while the width is at least this (W / 16 >= 128)
 
 
-def _open_device(rng, orig_coeffs, cs, zs, C, d: int, z: int, w, pp: pp_mod.PublicParams, C_bar, w_prime,
+def _open_device(rng, orig_coeffs, cs, C, d: int, z: int, w, pp: pp_mod.PublicParams, C_bar, w_prime,
                  xi0: int, H_prime) -> "EvalProof":
-    """open_'s device-transcript rounds (JAX pcdl._open_device): segments
-    of _open_fold_device chained on the device, then ONE copy of the whole
-    proof to the host.  Proof bytes equal the host transcript's.  A pinned
-    pad overflow, or a collapsed basis point at the identity, rebuilds the
-    proof through open_(..., _safe=True), the host transcript with measured
-    pads and fresh prover randomness."""
+    """open_'s device-transcript rounds (JAX pcdl._open_device): every
+    round, segment and the proof's assembly in one body (_open_rounds),
+    on the card one CUDA graph per (URS, n) (runtime.graphed), then ONE
+    copy of the whole proof to the host.  Proof bytes equal the host
+    transcript's.  A pinned pad overflow, or a collapsed basis point at the
+    identity, rebuilds the proof through open_(..., _safe=True), the host
+    transcript with measured pads and fresh prover randomness."""
     n = d + 1
-    lg_n = n.bit_length() - 1
-    dev = pp.device
-    # H' rides as two extra basis columns (scalars: the round's two dot
-    # products, one per route), then six zero columns, so N % 8 == 0; H'
-    # and xi_0 come over in one copy, the open's only one before its end
-    inputs = torch.from_numpy(ints_to_limb_array([H_prime[0]] * 2 + [H_prime[1]] * 2 + [xi0])).to(dev)
-    planes_ext = torch.cat([pp.gs_planes(n), msm_mod.planes_from_affine(inputs[:, 0:2], inputs[:, 2:4]),
-                            torch.zeros((L, 6), dtype=I64, device=dev)], dim=1)
-    xi = inputs[:, 4]
-    rounds, oks = [], []
-    # Wc, the segment width, is kept apart from the limb width W: shadowing
-    # W corrupted every proof of the JAX package once
-    Wc, rounds_left = n, lg_n
-    while Wc >= _COLLAPSE_MIN and rounds_left > 4:
-        seg, planes_ext, cs, zs, xi, ok = _open_fold_device(planes_ext, cs, zs, xi, 4, *_dual_params(Wc))
-        rounds += seg
-        oks.append(ok)
-        Wc //= 16
-        rounds_left -= 4
-    cU = msm_mod.window_size(Wc)
-    seg, (Uax, Uay, Uinf, c0, ok) = _open_fold_device(
-        planes_ext, cs, zs, xi, rounds_left, *_dual_params(Wc),
-        finalize=(cU, msm_mod.pinned_pads(Wc, cU), msm_mod._beffs(cU)))
-    rounds += seg
-    oks.append(ok)
-    # ONE copy for the whole proof: the rounds' affine limbs, U, c and the
-    # flags (infinity flags, then the AND of every ok flag)
-    flags = [f for r in rounds for f in (r[2], r[5])] + [Uinf, torch.stack(oks).all()]
-    blob = torch.cat([torch.stack([torch.stack([r[i] for i in (0, 1, 3, 4)]) for r in rounds]).reshape(-1),
-                      Uax, Uay, c0, torch.stack(flags).to(I64)]).cpu().numpy()
-    k = len(rounds)
+    # H' (its x twice, then its y twice), xi_0 and z: the open's one
+    # host-to-device copy, into the graph's static input
+    inputs = torch.from_numpy(ints_to_limb_array([H_prime[0]] * 2 + [H_prime[1]] * 2 + [xi0, z]))
+    blob = runtime.graphed("open", (n, _COLLAPSE_MIN), functools.partial(_open_rounds, pp), (cs, inputs),
+                           pp.device, holds=(pp,)).cpu().numpy()
+    k = n.bit_length() - 1
     coords = blob[: 4 * L * k].reshape(k, 4, L)
     Uh = blob[4 * L * k : 4 * L * k + 3 * L].reshape(3, L)
     fl = blob[4 * L * k + 3 * L :].astype(bool)
@@ -367,6 +349,44 @@ def _open_device(rng, orig_coeffs, cs, zs, C, d: int, z: int, w, pp: pp_mod.Publ
     Ls = [to_pt(coords[i, 0], coords[i, 1], fl[2 * i]) for i in range(k)]
     Rs = [to_pt(coords[i, 2], coords[i, 3], fl[2 * i + 1]) for i in range(k)]
     return EvalProof(Ls, Rs, to_pt(Uh[0], Uh[1], fl[-2]), to_int(Uh[2]), C_bar, w_prime)
+
+
+def _open_rounds(pp: pp_mod.PublicParams, cs, inputs):
+    """The device open's body, no host copy: cs (18, n) the padded
+    coefficients, inputs (18, 6) H'.x, H'.x, H'.y, H'.y, xi_0 and z.  The
+    segments of _open_fold_device chained on the device: a collapse
+    segment (four rounds, then the basis folded by 16) while the width is
+    at least _COLLAPSE_MIN and more than four rounds are left, then the
+    final segment.  -> the proof as one int64 vector: per round L.x, L.y,
+    R.x, R.y (canonical limbs), U.x, U.y, c, then the infinity flags (L, R
+    a round, then U) and the AND of every ok flag."""
+    n = cs.shape[1]
+    dev = cs.device
+    # H' rides as two extra basis columns (scalars: the round's two dot
+    # products, one per route), then six zero columns, so N % 8 == 0
+    planes_ext = torch.cat([pp.gs_planes(n), msm_mod.planes_from_affine(inputs[:, 0:2], inputs[:, 2:4]),
+                            torch.zeros((L, 6), dtype=I64, device=dev)], dim=1)
+    xi = inputs[:, 4]
+    zs = poly_mod.powers(inputs[:, 5], n)
+    rounds, oks = [], []
+    # Wc, the segment width, is kept apart from the limb width W: shadowing
+    # W corrupted every proof of the JAX package once
+    Wc, rounds_left = n, n.bit_length() - 1
+    while Wc >= _COLLAPSE_MIN and rounds_left > 4:
+        seg, planes_ext, cs, zs, xi, ok = _open_fold_device(planes_ext, cs, zs, xi, 4, *_dual_params(Wc))
+        rounds += seg
+        oks.append(ok)
+        Wc //= 16
+        rounds_left -= 4
+    cU = msm_mod.window_size(Wc)
+    seg, (Uax, Uay, Uinf, c0, ok) = _open_fold_device(
+        planes_ext, cs, zs, xi, rounds_left, *_dual_params(Wc),
+        finalize=(cU, msm_mod.pinned_pads(Wc, cU), msm_mod._beffs(cU)))
+    rounds += seg
+    oks.append(ok)
+    flags = [f for r in rounds for f in (r[2], r[5])] + [Uinf, torch.stack(oks).all()]
+    return torch.cat([torch.stack([torch.stack([r[i] for i in (0, 1, 3, 4)]) for r in rounds]).reshape(-1),
+                      Uax, Uay, c0, torch.stack(flags).to(I64)])
 
 
 def _dual_params(Wc: int):
@@ -516,29 +536,51 @@ def succinct_check(C: Point, d: int, z: int, v: int, pi: EvalProof, pp: pp_mod.P
     return res
 
 
-def deferred_device(hs: list[HPoly], Us: list[Point], d: int, pp: pp_mod.PublicParams):
-    """The deciders' deferred checks U == Commit(h coefficients) for K
-    checks at one degree, left on the device: (K,) bool, AND the pinned-pad
-    flag.  The K h expansions run batched; so do the K n-point MSMs under
-    the sort-payload pipeline, while the row-permutation one commits each
-    claim on its own (`msm.fixed_base_many_flagged`)."""
-    _check_degree(d, pp)
-    K = len(hs)
-    xis = FR.from_ints([x for h in hs for x in h.xis], pp.device)
-    hcs = poly_mod.tensor_h_coeffs(xis.reshape(L, K, -1))  # (18, K, n)
-    comm, flag = msm_mod.fixed_base_many_flagged(pp, hcs)
-    return cv.peq(comm, cv.from_affine_ints(Us, pp.device)) & flag
+def _deferred(xis, U: cv.PointVec, pp: pp_mod.PublicParams):
+    """U_k == Commit(h_k) for the challenges xis (18, K, lg n + 1) and the
+    points U (18, K), AND the pinned-pad flag: (K,) bool.  The K h
+    expansions run batched; so do the K n-point MSMs under the sort-payload
+    pipeline, while the row-permutation one commits each claim on its own
+    (`msm.fixed_base_many_flagged`)."""
+    comm, flag = msm_mod.fixed_base_many_flagged(pp, poly_mod.tensor_h_coeffs(xis))
+    return cv.peq(comm, U) & flag
+
+
+def _verdicts(pp: pp_mod.PublicParams, Px, Py, Pz, s, xis, Ux, Uy, Uz):
+    """The verdict graph's body: each MSM row's identity check (B,), the
+    last K = xis.shape[1] of them ANDed with _deferred(xis, U)."""
+    ok = _rows_and_isinf(cv.PointVec(Px, Py, Pz), s)
+    K = xis.shape[1]
+    return torch.cat([ok[: ok.shape[0] - K], ok[ok.shape[0] - K :] & _deferred(xis, cv.PointVec(Ux, Uy, Uz), pp)])
+
+
+def verdicts_device(rows, hs: list[HPoly], Us: list[Point], d: int, pp: pp_mod.PublicParams, graph: bool):
+    """Device verdicts of host MSM rows [(pts, scs)] whose last K = len(hs)
+    rows are full checks at degree d: (B,) bool, row b's sum is the
+    identity, the last K ANDed with U_k == Commit(h_k) and the pinned-pad
+    flag.  Left on the device.  graph: run as one CUDA graph on the card,
+    keyed by (B, M, K, n) and the URS (the JAX package's fused deciders);
+    else eagerly.  Both take the same inputs, built on the host and copied
+    over."""
+    n = _check_degree(d, pp)
+    P, s = rows_tensors(rows, "cpu")
+    xis = FR.from_ints([x for h in hs for x in h.xis]).reshape(L, len(hs), -1)
+    args = (*P, s, xis, *cv.from_affine_ints(Us))
+    body = functools.partial(_verdicts, pp)
+    if not graph:
+        return body(*(a.to(pp.device) for a in args))
+    return runtime.graphed("verdicts", (*s.shape[1:], len(hs), n), body, args, pp.device, holds=(pp,))
 
 
 def check_many_device(checks, pp: pp_mod.PublicParams):
     """Full checks of K claims [(C, d, z, v, pi)] at one degree with the
     verdicts left on the device: (K,) bool, each the succinct row equation
-    AND U == Commit(h) AND the pinned-pad flag.  Raises ValueError on
-    host-checkable malformations (proof length)."""
+    AND U == Commit(h) AND the pinned-pad flag; one CUDA graph on the card
+    under the sort-payload MSM (the JAX package's _deciders_fused).  Raises
+    ValueError on host-checkable malformations (proof length)."""
     parts = [succinct_check_parts(*chk, pp) for chk in checks]
-    ok_rows = _rows_and_isinf(*rows_tensors([(p[1], p[2]) for p in parts], pp.device))
-    d = checks[0][1]
-    return ok_rows & deferred_device([p[0] for p in parts], [chk[4].U for chk in checks], d, pp)
+    return verdicts_device([(p[1], p[2]) for p in parts], [p[0] for p in parts], [chk[4].U for chk in checks],
+                           checks[0][1], pp, graph=msm_mod._impl() == "sortrows")
 
 
 def check_device(C: Point, d: int, z: int, v: int, pi: EvalProof, pp: pp_mod.PublicParams):

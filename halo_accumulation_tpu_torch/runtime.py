@@ -1,4 +1,5 @@
-"""Device selection and the nvcc build of the CUDA kernels.
+"""Device selection, the nvcc build of the CUDA kernels, and the graph
+cache (`graphed`), the port's counterpart of the JAX package's cached_jit.
 
 There is no global backend switch: every entry point takes a `device`, and
 `device()` only turns a user's choice into a torch.device.  The card is the
@@ -14,11 +15,15 @@ shared headers, so an edit rebuilds and an unchanged tree reuses the build.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
+import time
+from collections import OrderedDict
+from dataclasses import dataclass
 
 import torch
 
@@ -88,3 +93,115 @@ def build_log(name: str) -> str:
     """The compiler output (ptxas's -v report) of kernel `name`'s current
     build."""
     return _lib_path(name).with_suffix(".log").read_text()
+
+
+# -- captured CUDA graphs: the port's counterpart of the JAX package's cached_jit --
+
+GRAPH_KEYS_MAX = 16  # graphs kept; a new key past it drops the least recently used
+
+
+@dataclass
+class Graph:
+    """One captured body: its static input and output tensors, the kernel
+    launches a replay makes (cuda_kernels.launches_since at capture), the
+    objects it reads in place and the seconds its warm-up and capture took."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: list
+    output: torch.Tensor
+    launches: dict
+    holds: tuple
+    capture_s: float
+
+
+graphs: OrderedDict = OrderedDict()  # graph_key -> Graph, least recently used first
+_graph_pool = None  # one memory pool that every graph allocates from
+_warmup_stream = None
+_eager = 0
+
+
+def graph_key(name: str, shape_key: tuple, holds: tuple = ()) -> tuple:
+    """A graph's key: its body's name, the static shapes it is captured at,
+    and the identity of each object whose tensors it reads in place."""
+    return (name, shape_key, tuple(id(h) for h in holds))
+
+
+@contextlib.contextmanager
+def _eager_graphs():
+    """Run every graphed body eagerly in the block, as on the CPU: the
+    comparison that chip_smoke.py and the tests make against the graphs."""
+    global _eager
+    _eager += 1
+    try:
+        yield
+    finally:
+        _eager -= 1
+
+
+def graphed(name: str, shape_key: tuple, body, args, device, holds: tuple = ()):
+    """body(*args) on `device`: on the card, a replay of a CUDA graph of
+    body captured once per graph_key(name, shape_key, holds).
+
+    body takes tensors and returns one tensor, and must not synchronize
+    with the host (a capture refuses it).  On the CPU, and inside
+    _eager_graphs(), body runs eagerly on args moved to `device`.  On the
+    card the first call of a key warms body up once, eagerly on a side
+    stream (that run loads the kernels and makes every cached device
+    constant, and is the call's result), then captures it; a failed
+    capture raises RuntimeError naming the key, and never falls back to the
+    eager path.  Later calls copy args into the static inputs (a host
+    tensor in args makes that copy the host-to-device one), replay, add
+    the launches recorded at capture to cuda_kernels' counts, and return a
+    clone of the static output, so a result survives later replays.
+
+    Memory: every graph allocates from one shared pool, so the cache holds
+    about the largest graph's working memory, not the sum; sharing is safe
+    because replays run one at a time on the current stream and each
+    output is cloned before anything else can replay.  At most
+    GRAPH_KEYS_MAX graphs are kept, the least recently used dropped first."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or _eager:
+        return body(*(a.to(dev) for a in args))
+    key = graph_key(name, shape_key, holds)
+    g = graphs.get(key)
+    if g is None:
+        return _capture(key, body, args, dev, holds)
+    from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
+
+    graphs.move_to_end(key)
+    for s, a in zip(g.inputs, args):
+        s.copy_(a)
+    g.graph.replay()
+    ck.add_launches(g.launches)
+    return g.output.clone()
+
+
+def _capture(key, body, args, dev, holds):
+    """Warm-up, then capture; returns the warm-up's result."""
+    from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
+
+    global _graph_pool, _warmup_stream
+    if _graph_pool is None:
+        _graph_pool = torch.cuda.graph_pool_handle()
+        _warmup_stream = torch.cuda.Stream(dev)
+    t = time.perf_counter()
+    inputs = [torch.empty(a.shape, dtype=a.dtype, device=dev).copy_(a) for a in args]
+    current = torch.cuda.current_stream(dev)
+    _warmup_stream.wait_stream(current)
+    with torch.cuda.stream(_warmup_stream):
+        out = body(*inputs)
+    current.wait_stream(_warmup_stream)
+    mark = ck.launch_record()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, pool=_graph_pool):
+            output = body(*inputs)
+    except RuntimeError as e:
+        raise RuntimeError(f"CUDA graph capture of {key} failed: {e}") from e
+    finally:
+        launches = ck.launches_since(mark)
+        ck.restore_launches(mark)  # a capture records its launches, it runs none
+    graphs[key] = Graph(graph, inputs, output, launches, holds, time.perf_counter() - t)
+    while len(graphs) > GRAPH_KEYS_MAX:
+        graphs.popitem(last=False)
+    return out

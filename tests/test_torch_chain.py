@@ -15,11 +15,14 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from halo_accumulation_tpu import acc as jacc, chain as jchain, pcdl as jpcdl, pp as jpp
 from halo_accumulation_tpu_torch import acc as acc_mod, chain, fields as F, pcdl, pp as pp_mod
-from halo_accumulation_tpu_torch.ops import poly
-from halo_accumulation_tpu_torch.ops.field import FR
+from halo_accumulation_tpu_torch.ops import curve as cv, poly
+from halo_accumulation_tpu_torch.ops.field import FR, L
+
+torch.set_num_threads(1)  # tier-1 runs several workers on few cores
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 LEGACY = ROOT / ".chain_cache" / "chain_512_10.bin"  # no HALOCHN2 tag: starts with d
@@ -105,7 +108,7 @@ def test_deferred_check_small_degree(pp):
     h = pcdl.HPoly(xis)
     coeffs = FR.to_ints(poly.tensor_h_coeffs(FR.from_ints(xis)))
     U = F.p_msm(coeffs, pp.gs_host(16))
-    ok = pcdl.deferred_device([h, h], [U, F.p_add(U, U)], 15, pp)
+    ok = pcdl._deferred(FR.from_ints(h.xis * 2).reshape(L, 2, -1), cv.from_affine_ints([U, F.p_add(U, U)]), pp)
     assert ok.tolist() == [True, False]
 
 

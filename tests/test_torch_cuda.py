@@ -8,17 +8,20 @@ JAX, so it also runs where only the port is installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import contextlib
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from halo_accumulation_tpu_torch import acc as acc_mod, chain, fields as F, pp as pp_mod
+from halo_accumulation_tpu_torch import acc as acc_mod, chain, fields as F, pcdl, pp as pp_mod
 from halo_accumulation_tpu_torch.ops import cuda_kernels as ck, curve as cv, msm as msm_mod
 from halo_accumulation_tpu_torch.ops.field import FQ, FR, L, limb_array_to_ints
 
 import chip_smoke
+
+torch.set_num_threads(1)  # tier-1 runs several workers on few cores
 
 pytestmark = pytest.mark.cuda
 
@@ -358,3 +361,111 @@ def test_inv_and_to_affine_on_card(cuda, rng, name):
         want = cv.to_affine(cv.PointVec(*P))
         got = cv.to_affine(cv.PointVec(*(c.to(cuda) for c in P)))
         assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+# -- captured CUDA graphs (runtime.graphed) --------------------------------------
+
+
+def _outcome(fn):
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def _chain_cases(d, qss, accs, pp):
+    """(name, verify_chain call, decide_many call) on the ten-step chain and
+    on tampered copies of the same shape (a replay reads them), then on a
+    key with generators 2 and 3 swapped (another graph): a proof's c
+    changes its row alone, an accumulator's v its decider's row."""
+    import dataclasses
+
+    def bumped_c(x):
+        return dataclasses.replace(x, pi=dataclasses.replace(x.pi, c=(x.pi.c + 1) % F.R))
+
+    gx, gy = pp.gs_x.clone(), pp.gs_y.clone()
+    gx[:, [2, 3]], gy[:, [2, 3]] = gx[:, [3, 2]], gy[:, [3, 2]]
+    swapped = pp_mod.PublicParams(pp.n, gx, gy, pp.s, pp.h)
+    q_c = [qs if k != 4 else [qs[0], bumped_c(qs[1])] for k, qs in enumerate(qss)]
+    last_c = accs[:-1] + [bumped_c(accs[-1])]
+    v0 = [dataclasses.replace(accs[0], v=(accs[0].v + 1) % F.R)] + accs[1:]
+    return [
+        ("good", lambda: chain.verify_chain_fast(d, qss, accs, pp), lambda: chain.verify_chain_slow(accs, pp)),
+        ("c", lambda: chain.verify_chain_fast(d, q_c, accs, pp), lambda: chain.verify_chain_slow(last_c, pp)),
+        ("v", lambda: chain.verify_chain_fast(d, qss, v0, pp), lambda: chain.verify_chain_slow(v0, pp)),
+        ("key", lambda: chain.verify_chain_fast(d, qss, accs, swapped), lambda: chain.verify_chain_slow(accs, swapped)),
+    ]
+
+
+# what each case raises: (verify_chain, decide_many); None accepts
+CHAIN_TEXTS = {
+    "good": (None, None),
+    "c": ("C_(log_n) != CM.Commit_Sigma(c || v') (batch index 8)",
+          "C_(log_n) != CM.Commit_Sigma(c || v') (batch index 0)"),
+    "v": ("h(z) != v at step 0", "C_(log_n) != CM.Commit_Sigma(c || v') (batch index 0)"),
+    "key": ("U != CM.Commit(ck, h_vec)", "U != CM.Commit(ck, h_vec)"),
+}
+
+
+def test_verdict_graphs_match_eager(cuda):
+    """verify_chain and decide_many on chain_512_10.bin: each case through
+    the graphs (captured at the first good run, replayed on the tampered
+    copies of the same shape right after it: the stale-input check) and
+    eagerly, with the same outcome and the JAX package's text; the launch
+    counts of a replay equal the eager path's."""
+    from halo_accumulation_tpu_torch import runtime
+
+    d, qss, accs = chain.load_chain(CHAIN)
+    pp = pp_mod.get_pp(d + 1, cuda)
+    cases = _chain_cases(d, qss, accs, pp)
+    for name, fast, slow in cases + cases[:1]:
+        got = (_outcome(fast), _outcome(slow))
+        with runtime._eager_graphs():
+            want = (_outcome(fast), _outcome(slow))
+        assert got == want == CHAIN_TEXTS[name], name
+    for run in (cases[0][1], cases[0][2]):
+        ck.reset_launches()
+        with runtime._eager_graphs():
+            run()
+        eager = (ck.launch_counts(), ck.launch_widths())
+        ck.reset_launches()
+        run()
+        assert (ck.launch_counts(), ck.launch_widths()) == eager
+    n, M, K = d + 1, 2 * 9 + 3, len(accs)
+    for shape in ((sum(map(len, qss)) + K + 1, M, 1, n), (K, M, K, n)):  # verify_chain's rows, decide_many's
+        assert runtime.graph_key("verdicts", shape, (pp,)) in runtime.graphs, shape
+
+
+def test_open_replay_matches_chain(cuda):
+    """random_instance(default_rng(7), 511) three times: the first captures
+    the n = 512 open (its result the warm-up's), the second replays it, the
+    third runs eagerly; each equals chain_512_10.bin's first instance byte
+    for byte, and the replay launches what the eager open launches."""
+    from halo_accumulation_tpu_torch import runtime
+
+    pp = pp_mod.get_pp(512, cuda)
+    want = chain.load_chain(CHAIN)[1][0][0].serialize()
+    got = []
+    for eager in (False, False, True):
+        ck.reset_launches()
+        with runtime._eager_graphs() if eager else contextlib.nullcontext():
+            got.append((chain.random_instance(np.random.default_rng(7), 511, pp).serialize(), ck.launch_counts()))
+    assert all(b == want for b, _ in got)
+    assert got[1][1] == got[2][1] and got[1][1]["rho_round"] == 9
+    assert ("open", (512, pcdl._COLLAPSE_MIN), (id(pp),)) in runtime.graphs
+
+
+def test_graph_bodies_make_no_sync(cuda):
+    """Every captured body (the verdicts of verify_chain and decide_many,
+    the n = 512 open) run eagerly on card inputs under
+    torch.cuda.set_sync_debug_mode("error") (chip_smoke.strict_bodies):
+    nothing synchronizes with the host.  The inputs are moved to the card
+    outside the mode, as a replay's static inputs are."""
+    d, qss, accs = chain.load_chain(CHAIN)
+    pp = pp_mod.get_pp(d + 1, cuda)
+    with chip_smoke.strict_bodies([]) as names:
+        chain.verify_chain_fast(d, qss, accs, pp)
+        chain.verify_chain_slow(accs, pp)
+        chain.random_instance(np.random.default_rng(7), 511, pp)
+    assert names == ["verdicts", "verdicts", "open"]

@@ -22,6 +22,8 @@ from halo_accumulation_tpu_torch import acc, chain, fields as F, pcdl, pp as pp_
 from halo_accumulation_tpu_torch.ops.field import FR, L
 from halo_accumulation_tpu_torch.utils import serialize as ser
 
+torch.set_num_threads(1)  # tier-1 runs several workers on few cores
+
 JAX_SRC = pathlib.Path(jacc.__file__).resolve().parent
 PORT_SRC = pathlib.Path(acc.__file__).resolve().parent
 CHAIN_512 = PORT_SRC.parent / ".chain_cache" / "chain_512_10.bin"
@@ -61,9 +63,9 @@ def test_commit_degree(pps, d):
 @pytest.mark.parametrize("entry", ["open", "commit_device", "deferred_device"])
 def test_device_entries_degree(pps, entry, d):
     """open_ and the device commits assert the degree bare, as the JAX
-    package's open_ and commit_device do.  deferred_device (the deciders'
-    deferred MSM) is held to commit_device, which JAX's check_device reaches
-    for the same MSM."""
+    package's open_ and commit_device do.  The deciders' deferred MSM
+    (pcdl.verdicts_device, eager or graphed) is held to commit_device,
+    which JAX's check_device reaches for the same MSM."""
     pp, jp = pps
     coeffs = FR.from_ints([1, 2, 3])
     rng = np.random.default_rng(0)
@@ -74,7 +76,7 @@ def test_device_entries_degree(pps, entry, d):
         port = lambda: pcdl.commit_device(coeffs, d, pp)  # noqa: E731
         jax = lambda: jpcdl.commit_device(None, d, jp)  # noqa: E731
     else:
-        port = lambda: pcdl.deferred_device([], [], d, pp)  # noqa: E731
+        port = lambda: pcdl.verdicts_device([], [], [], d, pp, graph=False)  # noqa: E731
         jax = lambda: jpcdl.commit_device(None, d, jp)  # noqa: E731
     e = assert_same(port, jax)
     assert type(e) is AssertionError and str(e) == ""

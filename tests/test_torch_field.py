@@ -13,6 +13,8 @@ from halo_accumulation_tpu.ops.field import FQ as JFQ, FR as JFR
 from halo_accumulation_tpu.runtime import cached_jit
 from halo_accumulation_tpu_torch.ops.field import FQ, FR, L, ints_to_limb_array
 
+torch.set_num_threads(1)  # tier-1 runs several workers on few cores
+
 
 FIELDS = {"Fq": (FQ, JFQ), "Fr": (FR, JFR)}
 EDGE = lambda p: [0, 1, 2, p - 1, p - 2, p // 2, 2 * p - 1, p, p + 1, (1 << 254) - 1, 1 << 254, (1 << 255) + 5, (1 << 257) - 1]  # noqa: E731

@@ -28,6 +28,8 @@ from halo_accumulation_tpu_torch import fields as F
 from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
 from halo_accumulation_tpu_torch.ops.field import FQ, FR, L, limb_array_to_ints
 
+torch.set_num_threads(1)  # tier-1 runs several workers on few cores
+
 FIELD_CUH = pathlib.Path(ck.__file__).resolve().parents[1] / "csrc" / "field.cuh"
 
 Q = F.Q

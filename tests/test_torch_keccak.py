@@ -20,6 +20,8 @@ from halo_accumulation_tpu_torch.ops import cuda_kernels as ck, keccak as kk
 from halo_accumulation_tpu_torch.ops.field import FQ, FR, L, limb_array_to_ints
 from halo_accumulation_tpu_torch.utils import serialize as ser, transcript as tr
 
+torch.set_num_threads(1)  # tier-1 runs several workers on few cores
+
 G = (F.G_X, F.G_Y)
 HALF = (F.Q - 1) // 2
 

@@ -28,6 +28,8 @@ from halo_accumulation_tpu.runtime import cached_jit
 from halo_accumulation_tpu_torch.ops import cuda_kernels as ck, curve as cv, msm as msm_mod
 from halo_accumulation_tpu_torch.ops.field import FQ, L, ints_to_limb_array
 
+torch.set_num_threads(1)  # tier-1 runs several workers on few cores
+
 PADD_CU = pathlib.Path(ck.__file__).resolve().parents[1] / "csrc" / "padd.cu"
 
 

@@ -22,6 +22,8 @@ from halo_accumulation_tpu_torch import pcdl, pp as pp_mod, runtime
 from halo_accumulation_tpu_torch.ops import curve as cv, msm, poly
 from halo_accumulation_tpu_torch.ops.field import FR, L
 
+torch.set_num_threads(1)  # tier-1 runs several workers on few cores
+
 
 URS_512 = pathlib.Path(__file__).resolve().parent.parent / ".urs_cache" / "urs_512.npz"
 

@@ -14,8 +14,11 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 from halo_accumulation_tpu_torch import chain, fields as F, hostops, native, pp as pp_mod
+
+torch.set_num_threads(1)  # tier-1 runs several workers on few cores
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CHAIN_512 = ROOT / ".chain_cache" / "chain_512_10.bin"

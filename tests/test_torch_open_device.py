@@ -23,10 +23,13 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 from halo_accumulation_tpu_torch import chain, fields as F, pcdl, pp as pp_mod
 from halo_accumulation_tpu_torch.ops import msm
 from halo_accumulation_tpu_torch.ops.field import FR
+
+torch.set_num_threads(1)  # tier-1 runs several workers on few cores
 
 N = 512
 D = N - 1

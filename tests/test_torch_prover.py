@@ -27,6 +27,8 @@ from halo_accumulation_tpu_torch import acc as acc_mod, chain, fields as F, pcdl
 from halo_accumulation_tpu_torch.ops import msm
 from halo_accumulation_tpu_torch.ops.field import FR
 
+torch.set_num_threads(1)  # tier-1 runs several workers on few cores
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CHAIN_512 = ROOT / ".chain_cache" / "chain_512_10.bin"
 N = 8
