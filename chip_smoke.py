@@ -60,13 +60,23 @@ Phases, each printing one JSON line:
      package docstring's example through the façade (setup, commit, open,
      check, verify_chain).
   5. chain: .chain_cache/chain_16384_10.bin through verify_chain and
-     decide_many, first under sortrows (each verdict one CUDA graph) and
-     then under rowperm (eager), both must accept; wall times of the first
+     decide_many, first under sortrows (each verdict one CUDA graph), then
+     under rowperm and under staged (eager), each must accept; wall times of the first
      run and the median of three more, and under sortrows three more with
      the host ops forced onto the Python oracle; then tampered copies of
      the same shape (replays of the good runs' graphs: the stale-input
      check) and one-step prefixes, which must reject with the reference's
      messages, REJECT_TEXTS.
+     Then staged: under HALO_TPU_MSM_IMPL=staged, build_chain(default_rng(7),
+     16384, 1) must equal the file's first step byte for byte and both
+     verifiers must accept it; a commitment whose coefficients are all
+     equal (every window's one live bucket holds all n points, past any
+     pinned pad) at n = 16384 and 65,536 (a URS made on the card) under
+     each of the three settings must take the staged _msm_measured (points
+     chunked to fit the scatter budget) and equal native.msm, with its
+     seconds and peak reserved memory; msm_sharded on a one-rank NCCL mesh
+     must equal msm at 16,384 points, and check_device(mesh=) the verdict
+     of check_device on the file's first claim and on a tampered copy.
   6. profile: one more sortrows run of each chain path, and one prover
      step (build_chain with k = 1) under each of the prove phase's
      settings, under torch.profiler and under cProfile (tables in
@@ -272,7 +282,8 @@ REJECT_TEXTS = {
 # the kernels each path must launch: its MSM setting's bucket kernel, the
 # curve kernels, and on the verifier paths the field multiply of peq
 MUST_LAUNCH = {"sortrows": {"padd", "pdbl", "bucket_masked"},
-               "rowperm": {"padd", "pdbl", "bucket_accum"}}
+               "rowperm": {"padd", "pdbl", "bucket_accum"},
+               "staged": {"padd", "pdbl"}}
 VERIFY_ALSO = {"fmul"}
 OPEN_DEVICE_ALSO = {"finv", "rho_round"}  # the device-transcript open's challenge and inversions
 WIDTHS_KEPT = ("padd", "pdbl", "bucket_masked", "bucket_accum", "finv")  # kernels whose launches by width each path reports
@@ -1239,6 +1250,188 @@ def _tampered(d, qss, accs, pp):
     ]
 
 
+STAGED_COMMIT_N = (16384, 65536)  # widths of the all-equal commits the staged phase makes
+STAGED_SETTINGS = ("sortrows", "rowperm", "staged")
+
+
+def _measured_calls():
+    """A list that collects msm._msm_measured's point counts in the block."""
+    from halo_accumulation_tpu_torch.ops import msm
+
+    calls, fn = [], msm._msm_measured
+
+    def spy(points, scalars, c=None):
+        calls.append(points.x.shape[1])
+        return fn(points, scalars, c)
+
+    msm._msm_measured = spy
+    return calls, lambda: setattr(msm, "_msm_measured", fn)
+
+
+def _equal_commits(dev, launches, widths) -> dict:
+    """At each of STAGED_COMMIT_N, the commitment to n equal coefficients
+    under every setting: one _msm_measured call (the pinned pass overflows),
+    the point native.msm gives, seconds and peak reserved memory."""
+    from halo_accumulation_tpu_torch import native, pcdl
+    from halo_accumulation_tpu_torch import pp as pp_mod
+    from halo_accumulation_tpu_torch.ops.field import FR
+
+    t = time.perf_counter()
+    pp_mod.get_pp(max(STAGED_COMMIT_N), dev)
+    torch.cuda.synchronize()
+    out = {"urs_gen_s": time.perf_counter() - t}
+    k = int.from_bytes(np.random.default_rng(SEED).bytes(40), "little") % (1 << 254)
+    for n in STAGED_COMMIT_N:
+        urs = pp_mod.get_pp(n, dev)
+        coeffs = FR.from_int(k, (n,), dev).contiguous()
+        t = time.perf_counter()
+        want = native.msm([k] * n, urs.gs_host(n))
+        out[f"native_msm_s_{n}"] = time.perf_counter() - t
+        for impl in STAGED_SETTINGS:
+            got = {}
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_reserved()
+            calls, restore = _measured_calls()
+            try:
+                with env("HALO_TPU_MSM_IMPL", impl):
+                    s = counted(f"commit_equal_{n}_{impl}", MUST_LAUNCH["staged"],
+                                lambda: got.update(C=pcdl.commit(coeffs, n - 1, None, urs)), launches, widths)
+            finally:
+                restore()
+            if got["C"] != want:
+                raise AssertionError(f"all-equal commit at n = {n} under {impl} differs from native.msm")
+            if calls != [n]:
+                raise AssertionError(f"all-equal commit at n = {n} under {impl}: _msm_measured calls {calls}")
+            out[f"n{n}_{impl}"] = {"s": s, "reserved_before_bytes": base,
+                                   "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+                                   "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                                   "launches": launches[f"commit_equal_{n}_{impl}"]}
+    return out
+
+
+def _sharded(pp, launches, widths) -> dict:
+    """msm_sharded on a one-rank NCCL mesh against msm at N points, and
+    check_device(mesh=) against check_device on chain_16384_10.bin's first
+    claim and on a copy with U off by one generator."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from halo_accumulation_tpu_torch import chain, fields as F, pcdl
+    from halo_accumulation_tpu_torch.ops import curve as cv, msm
+    from halo_accumulation_tpu_torch.ops.field import FR
+    from halo_accumulation_tpu_torch.parallel import msm_sharded as sh
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one rank needs no network: loopback only
+    mesh = sh.make_mesh()
+    try:
+        rng = np.random.default_rng(SEED)
+        s = FR.from_ints([int.from_bytes(rng.bytes(40), "little") % F.R for _ in range(N)], pp.device)
+        P = pp.gs_points(N)
+        ref = msm.msm(P, s)
+        got = {}
+        sec = counted("msm_sharded", MUST_LAUNCH["staged"],
+                      lambda: got.update(R=sh.msm_sharded(sh.shard_points(P, mesh), s, mesh)), launches, widths)
+        if not bool(cv.peq(got["R"], ref)):
+            raise AssertionError("msm_sharded on one rank differs from msm")
+        _, qss, _ = chain.load_chain(CHAIN)
+        q = qss[0][0]
+        bad = dataclasses.replace(q.pi, U=F.p_add(q.pi.U, pp.gs_host(1)[0]))
+        plain = [bool(pcdl.check_device(q.C, q.d, q.z, q.v, pi, pp)) for pi in (q.pi, bad)]
+        verdicts = []
+        check_s = counted("check_device_mesh", MUST_LAUNCH["staged"] | VERIFY_ALSO,
+                          lambda: verdicts.extend(bool(pcdl.check_device(q.C, q.d, q.z, q.v, pi, pp, mesh=mesh))
+                                                  for pi in (q.pi, bad)), launches, widths)
+        if verdicts != plain or plain != [True, False]:
+            raise AssertionError(f"check_device(mesh=) verdicts {verdicts}, without a mesh {plain}")
+        return {"backend": dist.get_backend(), "world_size": dist.get_world_size(), "n": N,
+                "msm_sharded_s": sec, "check_device_mesh_s": check_s, "verdicts": verdicts}
+    finally:
+        dist.destroy_process_group()
+
+
+def _staged_profiles(pp) -> dict:
+    """One warm run of each staged path under torch.profiler (_profiled):
+    a prover step, verify_chain and decide_many on chain_16384_10.bin, and
+    the all-equal commit at N; then msm_sharded under profiling.trace with
+    HALO_TPU_TRACE set, whose Chrome trace must hold device events."""
+    import torch.distributed as dist
+
+    from halo_accumulation_tpu_torch import chain, fields as F, pcdl, profiling
+    from halo_accumulation_tpu_torch.ops.field import FR
+    from halo_accumulation_tpu_torch.parallel import msm_sharded as sh
+
+    d, qss, accs = chain.load_chain(CHAIN)
+    k = int.from_bytes(np.random.default_rng(SEED).bytes(40), "little") % (1 << 254)
+    coeffs = FR.from_int(k, (N,), pp.device).contiguous()
+    paths = {"prove_staged_1step": lambda: chain.build_chain(np.random.default_rng(7), N, 1, pp),
+             "verify_chain_staged": lambda: chain.verify_chain_fast(d, qss, accs, pp),
+             "decide_many_staged": lambda: chain.verify_chain_slow(accs, pp),
+             f"commit_equal_{N}_staged": lambda: pcdl.commit(coeffs, N - 1, None, pp)}
+    out = {}
+    with env("HALO_TPU_MSM_IMPL", "staged"):
+        for path, fn in paths.items():
+            fn()
+            torch.cuda.reset_peak_memory_stats()
+            out[path] = {**_profiled(fn), "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+    rng = np.random.default_rng(SEED + 1)
+    s = FR.from_ints([int.from_bytes(rng.bytes(40), "little") % F.R for _ in range(N)], pp.device)
+    mesh = sh.make_mesh()
+    tdir = os.path.join(PROFILE_DIR, "trace")
+    try:
+        shard = sh.shard_points(pp.gs_points(N), mesh)
+        sh.msm_sharded(shard, s, mesh)
+        out["msm_sharded"] = _profiled(lambda: sh.msm_sharded(shard, s, mesh))
+        with env("HALO_TPU_TRACE", tdir), profiling.trace("msm_sharded"):
+            sh.msm_sharded(shard, s, mesh)
+            torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tdir, "msm_sharded.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if not kernels:
+        raise AssertionError("profiling.trace wrote no device kernel events")
+    out["trace_file"] = {"path": os.path.relpath(os.path.join(tdir, "msm_sharded.json"), REPO), "kernel_events": kernels}
+    return out
+
+
+def phase_staged(pp, smi, launches, widths) -> None:
+    """The staged backstop and the sharded MSM on the card (see the module
+    docstring, phase 5); padd's and pdbl's launches by width on each of
+    these paths."""
+    from halo_accumulation_tpu_torch import chain
+
+    raw = open(CHAIN, "rb").read()
+    off = 16 + (8 if raw[:8] == chain.CHAIN_MAGIC else 0)
+    built = {}
+    with env("HALO_TPU_MSM_IMPL", "staged"), safe_rebuilds() as rebuilds:
+        prove_s = counted("prove_staged", MUST_LAUNCH["staged"],
+                          lambda: built.update(c=chain.build_chain(np.random.default_rng(7), N, 1, pp)),
+                          launches, widths)
+        d, qss, accs = built["c"]
+        rec = b"".join(chain.step_records(qss, accs))
+        if raw[off : off + len(rec)] != rec:
+            raise AssertionError(f"prove_staged: step 0 differs from {os.path.basename(CHAIN)}")
+        verify_s = counted("verify_chain_staged_built", MUST_LAUNCH["staged"] | VERIFY_ALSO,
+                           lambda: chain.verify_chain_fast(d, qss, accs, pp), launches, widths)
+        decide_s = counted("decide_many_staged_built", MUST_LAUNCH["staged"] | VERIFY_ALSO,
+                           lambda: chain.verify_chain_slow(accs, pp), launches, widths)
+    if rebuilds:
+        raise AssertionError(f"prove_staged: open_ took its _safe rebuild {len(rebuilds)} times")
+    out = {"prove_staged": {"wall_s": prove_s, "bytes_matched": len(rec), "safe_rebuilds": 0,
+                            "verify_chain_s": verify_s, "decide_many_s": decide_s, "accepted": True}}
+    out["equal_commits"] = _equal_commits(pp.device, launches, widths)
+    out["sharded"] = _sharded(pp, launches, widths)
+    out["profiled"] = _staged_profiles(pp)
+    new = ["prove_staged", "verify_chain_staged_built", "decide_many_staged_built", "msm_sharded",
+           "check_device_mesh"] + [f"commit_equal_{n}_{i}" for n in STAGED_COMMIT_N for i in STAGED_SETTINGS]
+    emit({"phase": "staged", "card": smi, "n": N, "vs": os.path.basename(CHAIN), **out,
+          "launches": {p: launches[p] for p in new},
+          "widths": {k: {p: widths[k][p] for p in new} for k in ("padd", "pdbl")}})
+
+
 def phase_chain(pp, smi, launches, widths):
     from halo_accumulation_tpu_torch import chain
 
@@ -1249,7 +1442,7 @@ def phase_chain(pp, smi, launches, widths):
         "decide_many": lambda: chain.verify_chain_slow(accs, pp),
     }
     out, warm = {}, {}
-    for impl in ("sortrows", "rowperm"):
+    for impl in ("sortrows", "rowperm", "staged"):
         first, warm[impl] = {}, {}
         with env("HALO_TPU_MSM_IMPL", impl):
             for path, fn in paths.items():
@@ -1454,6 +1647,7 @@ def main() -> int:
     phase_open_copies(pp, smi)
     phase_api(smi)
     paths, warm = phase_chain(pp, smi, launches, widths)
+    phase_staged(pp, smi, launches, widths)
     with env("HALO_TPU_MSM_IMPL", "sortrows"):
         phase_profile(paths, warm, smi)
     from halo_accumulation_tpu_torch import chain

@@ -32,6 +32,10 @@ W = 15  # bits per limb
 MASK = 0x7FFF
 _DOM = 0x1FFFF  # digit domination constant for borrow-free K - b
 I64 = torch.int64
+# Lanes a CPU multiply takes at once: wider ones run in slices of this
+# many, so each (18, 18, lanes) int64 product table (2.6 MB) stays in
+# cache instead of being new memory from DRAM on every call.
+_CPU_LANES = 1024
 
 
 def int_to_limbs(v: int, n: int = L) -> list[int]:
@@ -74,7 +78,8 @@ def _pass2(cols, n_out: int | None = None):
 def _split_cols(p):
     """Column sums of a limb product table p (na, nb, *B) with each product
     split into (p & M) at column i+j and (p >> 15) at i+j+1: na + nb rows,
-    exactly the JAX package's _mul_cols values.
+    exactly the JAX package's _mul_cols values.  p is a temporary of the
+    caller's and is shifted in place.
 
     Row i of the (na + 1, nb) table lo[i] + hi[i-1] is written into a
     buffer whose rows are w + 1 long and read back as rows w long: that
@@ -88,7 +93,8 @@ def _split_cols(p):
     V[:, nb:] = 0
     torch.bitwise_and(p, MASK, out=V[:na, :nb])
     V[na, :nb] = 0
-    V[1:, :nb] += p >> W
+    p >>= W
+    V[1:, :nb] += p
     return buf[: (na + 1) * w].view((na + 1, w) + rest).sum(0)
 
 
@@ -211,7 +217,22 @@ class Field:
         return self._fold_tail(_pass(d, 20))
 
     def mul(self, a, b):
+        if not (a.is_cuda or b.is_cuda):
+            a, b = torch.broadcast_tensors(a, b)
+            n = a[0].numel()
+            if n > _CPU_LANES:
+                return self._mul_lanes(a.reshape(L, n), b.reshape(L, n)).reshape(a.shape)
         return self._reduce_wide(_pass2(_mul_cols(a, b)))
+
+    def _mul_lanes(self, a, b):
+        """mul of (18, n) CPU limbs, _CPU_LANES lanes at a time: the same
+        limbs as one call (every step is lane-wise), with each product
+        table small enough to stay in cache."""
+        out = a.new_empty(a.shape)
+        for s in range(0, a.shape[1], _CPU_LANES):
+            e = s + _CPU_LANES
+            out[:, s:e] = self._reduce_wide(_pass2(_mul_cols(a[:, s:e], b[:, s:e])))
+        return out
 
     def sqr(self, a):
         return self.mul(a, a)

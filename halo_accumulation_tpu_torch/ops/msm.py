@@ -17,12 +17,20 @@ chosen by HALO_TPU_MSM_IMPL as in the JAX package (`_impl`):
     the bucket kernel (ops/cuda_kernels.bucket_accum) gathers and sums each
     column's rows.  Narrow window groups fold their pad axis K ways across
     columns first (`_bucket_group_rows`).
-  * Both finish with suffix-doubling bucket weighting and a Horner window
+  * "staged" (any value other than those two, as in the JAX package) -
+    `_staged_msm` / `_msm_measured`: each window's points are scattered
+    into a (window, bucket x pad) identity matrix by their sort ranks and
+    summed over the pad axis with the complete add (`_bucket_sums_chunk`);
+    the backstop after a pinned-pad overflow under every setting (pads
+    measured from the digits, points chunked until one window's matrix
+    fits `_SCATTER_BUDGET_COLS`), and the stage the sharded MSM runs on
+    each rank (parallel/msm_sharded.py).
+  * All finish with suffix-doubling bucket weighting and a Horner window
     combine.  Zero digits go to bucket 0, which has weight 0: zero-padded
     scalar vectors cost almost nothing on the sort-payload path.
   * Pads (the most points a bucket may hold) are PINNED per size class with
-    a device validity flag; on the rare overflow `msm` re-runs the same
-    pipeline with pads measured from the digits.
+    a device validity flag; on the rare overflow `msm` falls back to the
+    staged pipeline with pads measured from the digits (`_msm_measured`).
   * `msm_rows`: many small independent MSMs, one per row, by a 4-bit
     windowed double-and-add (the batched succinct checks).
   * `fold_basis`: the device-transcript open's collapse of a basis by 16,
@@ -52,8 +60,8 @@ NBITS = 255
 # Most point columns (window group x buckets x pad) one sorted group may
 # gather at once; larger window runs are split into several groups.
 _SORT_BUDGET_COLS = 1 << 24
-# The same for one row-permutation group's index matrix (the JAX package's
-# scatter budget; the port never materializes the gathered rows).
+# The same for one row-permutation group's index matrix and for one staged
+# window group's scatter matrix (the JAX package's scatter budget).
 _SCATTER_BUDGET_COLS = 1 << 21
 _SORTROWS_MIN = 128  # narrower MSMs take the row-permutation pipeline
 _LADDER_MAX = 256  # unpadded MSMs this narrow take the exact ladder
@@ -62,15 +70,16 @@ _FOLD_COLS = 1024
 
 
 def _impl() -> str:
-    """The bucket pipeline HALO_TPU_MSM_IMPL selects: "sortrows" (default)
-    or "rowperm".  The JAX package's third value, "staged", is not ported."""
-    impl = os.environ.get("HALO_TPU_MSM_IMPL", "sortrows")
-    if impl == "staged":
-        raise NotImplementedError(
-            "HALO_TPU_MSM_IMPL=staged is not ported yet (ROADMAP.md, queue 1: backstop MSM pipelines)")
-    if impl not in ("sortrows", "rowperm"):
-        raise ValueError(f"HALO_TPU_MSM_IMPL={impl!r}: expected 'sortrows' or 'rowperm'")
-    return impl
+    """HALO_TPU_MSM_IMPL, as the JAX package reads it: "sortrows" (the
+    default), "rowperm", or "staged"; every other value runs the staged
+    pipeline too (`_staged`)."""
+    return os.environ.get("HALO_TPU_MSM_IMPL", "sortrows")
+
+
+def _staged() -> bool:
+    """Whether the setting selects the staged pipeline: any value other
+    than "sortrows" and "rowperm"."""
+    return _impl() not in ("sortrows", "rowperm")
 
 
 def window_size(n: int) -> int:
@@ -494,8 +503,7 @@ def _rowperm_msm(points: cv.PointVec, scalars, c: int, pads: list[int], beffs: l
 def _sortrows(n: int) -> bool:
     """Whether an n-point MSM takes the sort-payload pipeline: under the
     default setting, at widths of _SORTROWS_MIN and up (narrower ones take
-    the row-permutation pipeline, as in the JAX package).  The one reader
-    of HALO_TPU_MSM_IMPL."""
+    the row-permutation pipeline, as in the JAX package)."""
     return _impl() == "sortrows" and n >= _SORTROWS_MIN
 
 
@@ -506,11 +514,12 @@ def _true(device):
 def msm_flagged(points: cv.PointVec, scalars, c: int | None = None, pads: list[int] | None = None,
                 planes=None, rows=None):
     """MSM with PINNED pads and no host sync: (point, ok flag).  ok False
-    means a bucket overflowed its pad and the point is unreliable (msm()
-    then re-runs with measured pads).  Without pads, widths up to
+    means a bucket overflowed its pad and the point is unreliable (the
+    caller then takes `_msm_measured`).  Without pads, widths up to
     _LADDER_MAX take the exact ladder.  planes / rows: the URS's
     precomputed pair-packed planes (sort-payload) or row table
-    (row-permutation); each pipeline reads only its own."""
+    (row-permutation); each pipeline reads only its own, the staged one
+    neither."""
     N = points.x.shape[1]
     if pads is None and N <= _LADDER_MAX:
         return msm_ladder(points, scalars), _true(scalars.device)
@@ -522,49 +531,274 @@ def msm_flagged(points: cv.PointVec, scalars, c: int | None = None, pads: list[i
 
 
 def _pipeline(points: cv.PointVec, scalars, c: int, pads: list[int], planes, rows):
-    """(point, ok) from the pipeline `_sortrows` selects."""
+    """(point, ok) from the pipeline the setting selects, routed as the JAX
+    package's msm_flagged: sort-payload from _SORTROWS_MIN points under
+    "sortrows", row-permutation under "rowperm" and below it, staged
+    otherwise (its pinned pads checked by _pads_ok; a window whose scatter
+    matrix would pass the budget sends the MSM to msm(), which measures
+    and chunks).  The budget is held against 2^c columns a pad slot, which
+    is what stage 1 scatters: the JAX package holds beff * pad to it, and
+    at c = 10 (n = 65,536) the top window's pinned pad of 5,120 passes that
+    test but fails _bucket_sums' assertion (1,024 * 5,120 > 2^21)."""
     N = points.x.shape[1]
+    beffs = _beffs(c)
+    if _staged():
+        if any((1 << c) * p > _SCATTER_BUDGET_COLS for p in pads):
+            return msm(points, scalars, c), _true(scalars.device)
+        digits = _digits(scalars, c)
+        return _staged_msm(points, digits, c, pads, beffs), _pads_ok(digits, c, pads)
     if not _sortrows(N):
-        return _rowperm_msm(points, scalars, c, pads, _beffs(c), rows=rows)
+        return _rowperm_msm(points, scalars, c, pads, beffs, rows=rows)
     if planes is None:
         points, scalars = _pad_points(points, scalars, 8)
         planes = planes_from_points(points)
     elif planes.shape[1] % 8:
         raise ValueError("sort-payload planes need N % 8 == 0")
-    (pt,), ok = _sortrows_msm(planes, scalars, c, pads, _beffs(c))
+    (pt,), ok = _sortrows_msm(planes, scalars, c, pads, beffs)
     return pt, ok
 
 
-def _measure_pads(digits, c: int) -> list[int]:
-    """Per-window max nonzero-digit bucket counts, rounded to pad classes."""
-    W, N = digits.shape
-    B = 1 << c
-    rows = torch.arange(W, device=digits.device)[:, None] * B
-    counts = torch.bincount((digits + rows).reshape(-1), minlength=W * B).reshape(W, B)
-    counts[:, 0] = 0
-    return [_round_pad(max(1, int(m))) for m in counts.max(1).values.cpu()]
-
-
-def _msm_measured(points: cv.PointVec, scalars, c: int | None = None, planes=None, rows=None):
-    """The selected pipeline with pads measured from the digits (one host
-    sync): the backstop after a pinned-pad overflow."""
-    if c is None:
-        c = window_size(points.x.shape[1])
-    pt, ok = _pipeline(points, scalars, c, _measure_pads(_digits(scalars, c), c), planes, rows)
-    assert bool(ok), "measured pads cover every bucket"
-    return pt
-
-
 def msm(points: cv.PointVec, scalars, c: int | None = None, planes=None, rows=None) -> cv.PointVec:
-    """sum_i scalars_i * points_i: pinned pads first; on the rare overflow,
-    one re-run of the same pipeline with pads measured from the digits."""
+    """sum_i scalars_i * points_i.  Under "sortrows" and "rowperm": pinned
+    pads first, and on the rare overflow the staged pipeline with pads
+    measured from the digits; under the staged setting that measured
+    pipeline at once (the JAX package's msm)."""
     N = points.x.shape[1]
     if c is None:
         c = window_size(N)
-    pt, ok = msm_flagged(points, scalars, c=c, pads=pinned_pads(N, c), planes=planes, rows=rows)
-    if bool(ok):
+    if not _staged():
+        pt, ok = msm_flagged(points, scalars, c=c, pads=pinned_pads(N, c), planes=planes, rows=rows)
+        if bool(ok):
+            return pt
+    return _msm_measured(points, scalars, c)
+
+
+# -- staged pipeline and measured pads ----------------------------------------------------
+#
+# The JAX package's staged backstop: stage 1 scatters each window's points
+# into a (window, bucket x pad) identity matrix by their sort ranks and sums
+# the pad axis (_bucket_sums_chunk); stages 2 to 4 weight the buckets and
+# combine the windows (_weight_and_combine).  Every point op is the padd or
+# pdbl kernel.
+
+
+def _max_bucket_counts(digits, c: int):
+    """Per-row most points in any nonzero-digit bucket: (R, N) -> (R,).
+    Rows are windows, or (window, point chunk) pairs when a chunked run
+    re-measures.  A scatter-add of ones: no host sync."""
+    counts = torch.zeros((digits.shape[0], 1 << c), dtype=I64, device=digits.device)
+    counts.scatter_add_(1, digits, torch.ones_like(digits))
+    counts[:, 0] = 0
+    return counts.max(1).values
+
+
+def _pads_ok(digits, c: int, pads) -> torch.Tensor:
+    """Device bool: every window's fullest nonzero bucket fits its pad."""
+    pads = torch.tensor(list(pads), dtype=I64, device=digits.device)
+    return (_max_bucket_counts(digits, c) <= pads).all()
+
+
+def _measure_pads(digits, c: int, tag: str = "w") -> list[int]:
+    """Per-row max nonzero-digit bucket counts (one device-to-host copy),
+    rounded to pad classes.  tag names the JAX package's compile-cache
+    entry; it does nothing here."""
+    return [_round_pad(max(1, int(m))) for m in _max_bucket_counts(digits, c).cpu()]
+
+
+def _measure_pad(digits, c: int, tag: str = "w") -> int:
+    return max(_measure_pads(digits, c, tag))
+
+
+def _bucket_sums_chunk(points: cv.PointVec, digits, c: int, pad: int):
+    """Stage 1 for one window group: (Wc, N) digits -> bucket sums, a
+    tuple of three (Wc, 18, B) coordinates.  Each row's digits are sorted
+    (stably, as jnp.argsort); a point's rank in its bucket picks its slot,
+    and the points are written into a (18, Wc, B * pad) identity matrix at
+    (window, bucket * pad + slot) index pairs (never a flattened product,
+    so no index overflows).  Ranks past pad - 1 share the last slot: only
+    the weightless bucket 0 may overflow when the pads were measured.
+    Then the complete-add tree over the pad axis."""
+    Wc, N = digits.shape
+    B = 1 << c
+    dev = digits.device
+    sd, order = torch.sort(digits, dim=1, stable=True)
+    first = torch.searchsorted(sd, sd, side="left")
+    rank = torch.arange(N, device=dev)[None] - first
+    col = (sd * pad + rank.clamp(max=pad - 1)).reshape(Wc * N)
+    widx = torch.arange(Wc, device=dev)[:, None].expand(Wc, N).reshape(Wc * N)
+    M = cv.identity((Wc, B * pad), dev)
+    for m, a in zip(M, points):
+        m[:, widx, col] = a[:, order].reshape(L, Wc * N)
+    S = cv.sum_points(cv.PointVec(*(m.reshape(L, Wc, B, pad) for m in M)), axis=2)  # (18, Wc, B)
+    return tuple(a.movedim(0, 1) for a in S)
+
+
+def _bucket_sums(points: cv.PointVec, digits, c: int, pad: int):
+    """Stage 1: (W, N) digits -> (W, 18, B) bucket sums, windows grouped so
+    each group's scatter matrix fits _SCATTER_BUDGET_COLS."""
+    W = digits.shape[0]
+    B = 1 << c
+    assert B * pad <= _SCATTER_BUDGET_COLS, "caller must chunk points first"
+    Wg = max(1, _SCATTER_BUDGET_COLS // (B * pad))
+    outs = [_bucket_sums_chunk(points, digits[w0 : w0 + Wg], c, pad) for w0 in range(0, W, Wg)]
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+
+
+def _combine_sums(a, b):
+    """Complete-add two (W, 18, B) partial bucket-sum stacks."""
+    A = cv.PointVec(*(x.movedim(1, 0) for x in a))
+    Bv = cv.PointVec(*(x.movedim(1, 0) for x in b))
+    return tuple(x.movedim(0, 1) for x in cv.padd(A, Bv))
+
+
+def _suffix_mask(xs, c: int):
+    """Stage 2 as separate sums: suffix sums T_b = sum_{j >= b} S_j (so
+    sum_{b >= 1} T_b = sum_b b S_b), bucket 0 set to the identity.
+    (W, 18, B) -> (W, 18, B)."""
+    B = 1 << c
+    T = cv.PointVec(*(a.movedim(0, 1) for a in xs))  # (18, W, B)
+    T = _shift_adds(T, c)
+    dev = T.x.device
+    T = cv.pselect(torch.arange(B, device=dev) >= 1, T, cv.identity(T.batch_shape, dev))
+    return tuple(a.movedim(1, 0) for a in T)
+
+
+def _window_reduce(xs):
+    """Stage 3: the bucket axis tree-summed, (W, 18, B) -> (18, W)."""
+    return tuple(cv.sum_points(cv.PointVec(*(a.movedim(0, 1) for a in xs)), axis=1))
+
+
+def _horner_combine(xs, c: int) -> cv.PointVec:
+    """Stage 4: Horner over the windows' points (18, W), msb window first:
+    acc <- 2^c acc + T_w, one point."""
+    acc = _horner_routes(cv.PointVec(*(a[:, :, None] for a in xs)), c)
+    return cv.PointVec(acc.x[:, 0], acc.y[:, 0], acc.z[:, 0])
+
+
+def _weight_and_combine(S, c: int) -> cv.PointVec:
+    """Stages 2 to 4: (W, 18, B) bucket sums -> the suffix-doubling
+    weighted sum of each window -> Horner over the windows."""
+    B = S[0].shape[2]
+    V = _suffix_weight(cv.PointVec(*(a.movedim(0, 1) for a in S)), B)  # (18, W)
+    return _horner_combine(tuple(V), c)
+
+
+def _staged_msm(points: cv.PointVec, digits, c: int, pads: list[int], beffs: list[int]) -> cv.PointVec:
+    """The staged pipeline with a pad per run of windows sharing (beff,
+    pad): stage 1 per run, stages 2 to 4 once over every window."""
+    outs = [_bucket_sums(points, digits[w0:w1], c, pad) for w0, w1, _, pad in _group_windows(pads, beffs)]
+    S = outs[0] if len(outs) == 1 else tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+    return _weight_and_combine(S, c)
+
+
+def _msm_measured(points: cv.PointVec, scalars, c: int | None = None) -> cv.PointVec:
+    """The staged pipeline with pads measured from the digits (one host
+    copy): the backstop after a pinned-pad overflow under every setting,
+    and the staged setting's msm.  When one window's scatter matrix would
+    pass _SCATTER_BUDGET_COLS, the points go in K chunks (K doubling until
+    each chunk's re-measured pad fits), whose bucket sums meet in complete
+    adds; digits so skewed that 64 chunks do not fit restart at c = 3."""
+    N = points.x.shape[1]
+    assert scalars.shape == (L, N)
+    if c is None:
+        c = window_size(N)
+    B = 1 << c
+    W = num_windows(c)
+    digits = _digits(scalars, c)
+    pads = _measure_pads(digits, c)
+    if all(B * p <= _SCATTER_BUDGET_COLS for p in pads):
+        return _staged_msm(points, digits, c, pads, _beffs(c))
+    pad = max(pads)
+    if B * pad <= _SCATTER_BUDGET_COLS:
+        return _weight_and_combine(_bucket_sums(points, digits, c, pad), c)
+    K = 2
+    while True:
+        points, scalars = _pad_points(points, scalars, K)
+        if points.x.shape[1] != digits.shape[1]:
+            digits = _digits(scalars, c)
+        Nc = digits.shape[1] // K
+        padk = _measure_pad(digits.reshape(W * K, Nc), c, "k")
+        if B * padk <= _SCATTER_BUDGET_COLS or Nc == 1:
+            break
+        if K >= 64 and c > 3:
+            return _msm_measured(points, scalars, c=3)
+        K *= 2
+    S = None
+    for k in range(K):
+        lo, hi = k * Nc, (k + 1) * Nc
+        Sk = _bucket_sums(cv.PointVec(*(a[:, lo:hi] for a in points)), digits[:, lo:hi], c, padk)
+        S = Sk if S is None else _combine_sums(S, Sk)
+    return _weight_and_combine(S, c)
+
+
+# -- shape-classed and reference MSMs -------------------------------------------------------
+
+_CLASS_MIN = 128
+
+
+def _width_class(m: int) -> int:
+    """The class ladder 128, 512, 2048, ...: the least class holding m."""
+    cls = _CLASS_MIN
+    while cls < m:
+        cls *= 4
+    return cls
+
+
+def msm_classed(points: cv.PointVec, scalars, flags: list | None = None) -> cv.PointVec:
+    """MSM with the width padded to its class and pinned pads of the class
+    at c = 5, as the JAX package's (its open's former inner loop).  Up to
+    _CLASS_MIN points: the exact ladder.  With a flags list, the pinned-pad
+    flag (a device bool) is appended and the caller answers for an
+    overflow; without, the pads are measured and merged with the pinned
+    ones, so the result is always right.  Runs the staged pipeline, or the
+    row-permutation one under "rowperm"."""
+    m = points.x.shape[1]
+    dev = scalars.device
+    cls = _width_class(m)
+    if cls <= _CLASS_MIN:
+        pt = msm_ladder(points, scalars)
+        if flags is not None:
+            flags.append(_true(dev))
         return pt
-    return _msm_measured(points, scalars, c, planes=planes, rows=rows)
+    c = 5
+    points, scalars = _pad_points(points, scalars, cls)
+    pads = pinned_pads(cls, c)
+    beffs = _beffs(c)
+    if _impl() == "rowperm":
+        pt, okv = _rowperm_msm(points, scalars, c, pads, beffs)
+        if flags is not None:
+            flags.append(okv)
+            return pt
+        if bool(okv):
+            return pt
+        return _msm_measured(points, scalars, c)
+    digits = _digits(scalars, c)
+    if flags is not None:
+        flags.append(_pads_ok(digits, c, pads))
+    else:
+        pads = [max(p, q) for p, q in zip(pads, _measure_pads(digits, c, "cl"))]
+    if any((1 << c) * p > _SCATTER_BUDGET_COLS for p in pads):
+        return _msm_measured(points, scalars)
+    return _staged_msm(points, digits, c, pads, beffs)
+
+
+def msm_naive(points: cv.PointVec, scalars) -> cv.PointVec:
+    """Reference binary-method MSM: per bit, msb first, one doubling and the
+    tree sum of the points whose scalar has the bit set (255 doublings and
+    about 255 N adds).  A slow independent check of the bucket pipelines."""
+    N = points.x.shape[1]
+    dev = scalars.device
+    s = FR.canon(scalars)
+    ident = cv.identity((N,), dev)
+    acc = cv.identity((), dev)
+    for i in range(NBITS):
+        bit = NBITS - 1 - i
+        acc = cv.pdbl(acc)
+        sel = cv.pselect(((s[bit // 15] >> (bit % 15)) & 1).bool(), points, ident)
+        acc = cv.padd(acc, cv.sum_points(sel, axis=0))
+    return acc
 
 
 # -- fixed-base MSMs over the URS -------------------------------------------------------
@@ -575,10 +809,13 @@ def msm(points: cv.PointVec, scalars, c: int | None = None, planes=None, rows=No
 
 
 def _urs_tables(urs, k: int, projective: bool) -> dict:
-    """The table of the first k generators the selected pipeline reads.
-    projective: 64-lane projective rows instead of 40-lane affine ones."""
+    """The table of the first k generators the selected pipeline reads
+    (none for the staged one).  projective: 64-lane projective rows instead
+    of 40-lane affine ones."""
     if _sortrows(k):
         return {"planes": urs.gs_planes(k)}
+    if _staged():
+        return {}
     return {"rows": urs.gs_rows(k, projective)}
 
 
@@ -590,14 +827,17 @@ def fixed_base_flagged(urs, scalars, projective: bool = False):
 
 
 def fixed_base(urs, scalars, projective: bool = False) -> cv.PointVec:
-    """fixed_base_flagged, re-run with measured pads on an overflow.  The
+    """fixed_base_flagged, and on an overflow the staged `_msm_measured`
+    over the generators, as the JAX package's msm(); under the staged
+    setting above _LADDER_MAX points that measured MSM at once.  The
     prover's rounds and U read projective rows under the row-permutation
     setting, as the JAX package's (its msm() builds them from the points)."""
-    pt, ok = fixed_base_flagged(urs, scalars, projective)
-    if bool(ok):
-        return pt
     k = scalars.shape[1]
-    return _msm_measured(urs.gs_points(k), scalars, **_urs_tables(urs, k, projective))
+    if not (_staged() and k > _LADDER_MAX):
+        pt, ok = fixed_base_flagged(urs, scalars, projective)
+        if bool(ok):
+            return pt
+    return _msm_measured(urs.gs_points(k), scalars)
 
 
 def _split_routes(s_comb, route):

@@ -177,10 +177,10 @@ def commit(coeffs, d: int, w: int | None, pp: pp_mod.PublicParams) -> Point:
         coeffs = FR.from_ints(coeffs, pp.device)
     coeffs = _pad_pow2(coeffs, n)
     # the pinned-pad MSM's point and flag come over in one copy; the rare
-    # overflow re-runs with measured pads
+    # overflow takes the staged pipeline with measured pads
     C, ok = _point_and_flag_to_host(*msm_mod.fixed_base_flagged(pp, coeffs))
     if not ok:
-        C = point_to_host(msm_mod.fixed_base(pp, coeffs))
+        C = point_to_host(msm_mod._msm_measured(pp.gs_points(coeffs.shape[1]), coeffs))
     return C if w is None else H.p_add(C, H.p_mul(w, pp.s))
 
 
@@ -583,9 +583,27 @@ def check_many_device(checks, pp: pp_mod.PublicParams):
                            checks[0][1], pp, graph=msm_mod._impl() == "sortrows")
 
 
-def check_device(C: Point, d: int, z: int, v: int, pi: EvalProof, pp: pp_mod.PublicParams):
-    """Full check of one claim with the verdict left on the device."""
-    return check_many_device([(C, d, z, v, pi)], pp)[0]
+def check_device(C: Point, d: int, z: int, v: int, pi: EvalProof, pp: pp_mod.PublicParams,
+                 mesh=None, axis: str | None = None):
+    """Full check of one claim with the verdict left on the device.
+    mesh: a 1-D DeviceMesh (parallel/msm_sharded.make_mesh) to split the
+    deferred n-point MSM over its ranks, as the JAX package's check_device
+    does when its size divides n; every rank must call it, and each gets
+    the verdict.  axis: the mesh's dimension name (msm_sharded.AXIS)."""
+    if mesh is None or (d + 1) % mesh.size():
+        return check_many_device([(C, d, z, v, pi)], pp)[0]
+    from halo_accumulation_tpu_torch.parallel import msm_sharded as sh
+
+    assert axis in (None, sh.AXIS), f"the mesh's one dimension is {sh.AXIS!r}"
+    h, pts, scs = succinct_check_parts(C, d, z, v, pi, pp)
+    ok_row = _rows_and_isinf(*rows_tensors([(pts, scs)], pp.device))[0]
+    hc = _pad_pow2(_h_coeffs(h, pp.device), d + 1)
+    k = max(hc.shape[1], mesh.size())
+    if hc.shape[1] < k:
+        hc = torch.cat([hc, FR.zeros((k - hc.shape[1],), pp.device)], dim=1)
+    comm = sh.msm_sharded(sh.shard_points(pp.gs_points(k), mesh), hc, mesh)
+    U = cv.from_affine_ints([pi.U], pp.device)
+    return ok_row & cv.peq(comm, cv.PointVec(U.x[:, 0], U.y[:, 0], U.z[:, 0]))
 
 
 def check(C: Point, d: int, z: int, v: int, pi: EvalProof, pp: pp_mod.PublicParams):

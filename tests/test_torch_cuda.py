@@ -30,7 +30,8 @@ LANES = 4096
 PADD_WIDTHS = (1, 2, 5, 10, 30, 7936, 65536, 79360)  # padd widths held to the twin
 # the kernels each path must launch, by MSM setting
 MUST_LAUNCH = {"sortrows": {"fmul", "padd", "pdbl", "bucket_masked"},
-               "rowperm": {"fmul", "padd", "pdbl", "bucket_accum"}}
+               "rowperm": {"fmul", "padd", "pdbl", "bucket_accum"},
+               "staged": {"fmul", "padd", "pdbl"}}
 
 
 def same_canonical(got, want) -> bool:
@@ -213,7 +214,7 @@ def test_bucket_accum_matches_twin(cuda, rng, lanes, split):
     assert same_canonical(got, ck.bucket_accum_plain(rows, src, T))
 
 
-@pytest.mark.parametrize("impl", ["sortrows", "rowperm"])
+@pytest.mark.parametrize("impl", ["sortrows", "rowperm", "staged"])
 def test_chain_verifier_on_card(cuda, monkeypatch, impl):
     """Both verifier paths under one MSM setting, the launch counts zeroed
     just before each path: each must launch its setting's kernels."""
@@ -232,7 +233,7 @@ def test_chain_verifier_on_card(cuda, monkeypatch, impl):
         chain.verify_chain_slow([bad, accs[1]], pp)
 
 
-@pytest.mark.parametrize("impl", ["sortrows", "rowperm"])
+@pytest.mark.parametrize("impl", ["sortrows", "rowperm", "staged"])
 def test_prover_rebuilds_committed_chain(cuda, monkeypatch, impl):
     """build_chain from default_rng(7) (the JAX package's builder seed)
     rebuilds the first step of chain_512_10.bin byte for byte, and the
@@ -247,6 +248,71 @@ def test_prover_rebuilds_committed_chain(cuda, monkeypatch, impl):
     assert chain.step_records(qss, accs) == chain.step_records(fqss[:1], faccs[:1])
     chain.verify_chain_fast(d, qss, accs, pp)
     chain.verify_chain_slow(accs, pp)
+
+
+STAGED_N = 4096  # the card tests' mid width for the staged and sharded MSMs
+
+
+def test_staged_msm_on_card(cuda, monkeypatch, rng):
+    """The staged pipeline on the card: msm under the staged setting
+    (measured pads) and msm_flagged's staged branch (pinned pads, flag
+    True) equal the sort-payload msm at 4,096 points; a commitment to 4,096
+    equal coefficients under every setting takes _msm_measured, its points
+    chunked under a budget of 2^18 columns, and equals native.msm."""
+    from halo_accumulation_tpu_torch import native
+
+    n = STAGED_N
+    pp = pp_mod.get_pp(n, cuda)
+    s = FR.from_ints([int.from_bytes(rng.bytes(40), "little") % F.R for _ in range(n)], cuda)
+    P = pp.gs_points(n)
+    monkeypatch.setenv("HALO_TPU_MSM_IMPL", "sortrows")
+    ref = msm_mod.msm(P, s)
+    monkeypatch.setenv("HALO_TPU_MSM_IMPL", "staged")
+    ck.reset_launches()
+    assert bool(cv.peq(msm_mod.msm(P, s), ref))
+    c = msm_mod.window_size(n)
+    pt, ok = msm_mod.msm_flagged(P, s, c=c, pads=msm_mod.pinned_pads(n, c))
+    assert bool(ok) and bool(cv.peq(pt, ref))
+    assert all(ck.launch_counts()[k] > 0 for k in ("padd", "pdbl"))
+    k = int.from_bytes(rng.bytes(31), "little")
+    want = native.msm([k] * n, pp.gs_host(n))
+    monkeypatch.setattr(msm_mod, "_SCATTER_BUDGET_COLS", 1 << 18)
+    calls, real = [], msm_mod._msm_measured
+    monkeypatch.setattr(msm_mod, "_msm_measured", lambda *a: calls.append(a[0].x.shape[1]) or real(*a))
+    for impl in ("sortrows", "rowperm", "staged"):
+        monkeypatch.setenv("HALO_TPU_MSM_IMPL", impl)
+        assert pcdl.commit(FR.from_int(k, (n,), cuda).contiguous(), n - 1, None, pp) == want
+    assert calls == [n] * 3
+
+
+def test_msm_sharded_one_rank_on_card(cuda, rng):
+    """msm_sharded on a one-rank NCCL mesh equals msm at 4,096 points, and
+    check_device(mesh=) gives check_device's verdicts on chain_512_10.bin's
+    first claim and on a copy whose U is off by one generator."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from halo_accumulation_tpu_torch.parallel import msm_sharded as sh
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    n = STAGED_N
+    pp = pp_mod.get_pp(n, cuda)
+    s = FR.from_ints([int.from_bytes(rng.bytes(40), "little") % F.R for _ in range(n)], cuda)
+    mesh = sh.make_mesh()
+    try:
+        assert dist.get_backend() == "nccl" and mesh.size() == 1
+        P = pp.gs_points(n)
+        assert bool(cv.peq(sh.msm_sharded(sh.shard_points(P, mesh), s, mesh), msm_mod.msm(P, s)))
+        _, qss, _ = chain.load_chain(CHAIN)
+        q = qss[0][0]
+        pp512 = pp_mod.get_pp(q.d + 1, cuda)
+        bad = dataclasses.replace(q.pi, U=F.p_add(q.pi.U, pp512.gs_host(1)[0]))
+        for pi, verdict in ((q.pi, True), (bad, False)):
+            assert bool(pcdl.check_device(q.C, q.d, q.z, q.v, pi, pp512)) is verdict
+            assert bool(pcdl.check_device(q.C, q.d, q.z, q.v, pi, pp512, mesh=mesh)) is verdict
+    finally:
+        dist.destroy_process_group()
 
 
 def test_default_device_is_cuda(cuda):

@@ -18,7 +18,7 @@ import torch
 
 from halo_accumulation_tpu import fields as F, pcdl as jpcdl
 from halo_accumulation_tpu.ops import curve as jcv, msm as jmsm
-from halo_accumulation_tpu_torch import pcdl, pp as pp_mod, runtime
+from halo_accumulation_tpu_torch import pp as pp_mod, runtime
 from halo_accumulation_tpu_torch.ops import curve as cv, msm, poly
 from halo_accumulation_tpu_torch.ops.field import FR, L
 
@@ -241,20 +241,38 @@ def test_dual_route_sortrows_vs_oracle(rng, base):
 
 
 def test_msm_impl_selector(monkeypatch, urs):
-    """HALO_TPU_MSM_IMPL as the JAX package reads it: sortrows by default,
-    rowperm on request; staged (not ported) and unknown values raise, in
-    _impl and through a commitment: no other pipeline runs in their place."""
+    """HALO_TPU_MSM_IMPL as the JAX package reads and routes it: sortrows by
+    default, rowperm on request, and the staged pipeline for "staged" and
+    for any other value (msm.py:881-888, 917-925): msm_flagged runs it with
+    its pinned pads and flag, msm() with measured pads; neither bucket
+    pipeline runs in its place."""
     monkeypatch.delenv("HALO_TPU_MSM_IMPL", raising=False)
-    assert msm._impl() == "sortrows" == jmsm._impl()
+    assert msm._impl() == "sortrows" == jmsm._impl() and not msm._staged()
     monkeypatch.setenv("HALO_TPU_MSM_IMPL", "rowperm")
-    assert msm._impl() == "rowperm" == jmsm._impl()
-    coeffs = FR.from_ints([1] * 64)
-    for value, err in (("staged", NotImplementedError), ("sortrow", ValueError)):
+    assert msm._impl() == "rowperm" == jmsm._impl() and not msm._staged()
+    n, c = 16, 4
+    P, coeffs = urs.gs_points(n), FR.from_ints([1] * n)
+    want = None
+    for g in urs.gs_host(n):
+        want = F.p_add(want, g)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a bucket pipeline ran under the staged setting")
+
+    monkeypatch.setattr(msm, "_rowperm_msm", refuse)
+    monkeypatch.setattr(msm, "_sortrows_msm", refuse)
+    staged, measured = [], []
+    real_staged, real_measured = msm._staged_msm, msm._msm_measured
+    monkeypatch.setattr(msm, "_staged_msm", lambda *a: staged.append(a[3]) or real_staged(*a))
+    monkeypatch.setattr(msm, "_msm_measured", lambda *a: measured.append(1) or real_measured(*a))
+    for value in ("staged", "sortrow"):
         monkeypatch.setenv("HALO_TPU_MSM_IMPL", value)
-        with pytest.raises(err, match="ROADMAP" if value == "staged" else "sortrow"):
-            msm._impl()
-        with pytest.raises(err):
-            pcdl.commit_device(coeffs, 63, urs)
+        assert msm._impl() == value == jmsm._impl() and msm._staged()
+        # every point in bucket 1 of the last window: past a pinned pad of 2
+        pt, ok = msm.msm_flagged(P, coeffs, c=c, pads=[2] * msm.num_windows(c))
+        assert not bool(ok)
+        assert cv.to_host(msm.msm(P, coeffs, c=c)) == [want]
+    assert measured == [1, 1] and [p[-1] for p in staged] == [2, n, 2, n]
 
 
 @pytest.mark.parametrize("top", [False, True], ids=["random", "top_bucket_last_index"])
