@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
      the run fails if it gave way to the Python oracle), its g++ build
      seconds, and its ops on a sample against the fields.py oracle; then
      urs: the 16384-generator URS generated on the card, sampled against
-     the int oracle.
+     the int oracle, written to the URS disk cache (HALO_TPU_URS_CACHE is
+     build/urs_cache, emptied at the start of the run) and read back.
   3. kernels: fmul and padd at 65,536 lanes (both timed over ten launches
      queued), fmul also on every pair of its edge lanes (fmul_edge_limbs),
      timed at 64, 128 and 256 threads a block, and with each of the ten
@@ -77,6 +78,15 @@ Phases, each printing one JSON line:
      seconds and peak reserved memory; msm_sharded on a one-rank NCCL mesh
      must equal msm at 16,384 points, and check_device(mesh=) the verdict
      of check_device on the file's first claim and on a tampered copy.
+     Then mesh, on the same one-rank NCCL group (formed once for both and
+     destroyed after): open_(mesh=) at n = 16384 with hiding must write the
+     single-device open's bytes for a copy of the same rng;
+     succinct_check_batch(mesh=) on the file's 19 claims must accept, and
+     reject a copy with one v off by one at that row, as without a mesh;
+     verify_chain(mesh=) must accept the file and reject four tampered
+     copies (v of the last step, c of step 4's fresh claim, G0/G1 and
+     G2/G3 swapped in the key) with REJECT_TEXTS, as without a mesh;
+     pmul_shared on 1,024 lanes must equal fields.p_mul on a sample.
   6. profile: one more sortrows run of each chain path, and one prover
      step (build_chain with k = 1) under each of the prove phase's
      settings, under torch.profiler and under cProfile (tables in
@@ -86,6 +96,16 @@ Phases, each printing one JSON line:
      busy, idle share and device events under torch.profiler; every
      verdict body run eagerly under set_sync_debug_mode("error"); each
      graph's capture seconds; the card's reserved memory at the end.
+  8. chains: every file under .chain_cache/ (CHAIN_FILES: n = 512 to 16384
+     at K = 10 and 100, and 65536 at K = 4), on a URS sliced from the
+     16384- or 65536-generator one: build_chain(default_rng(7), n, 1) must
+     equal the first step of every file of that n byte for byte; under
+     sortrows, and under rowperm on the files with K <= 10, verify_chain
+     and decide_many must accept the file (first and warm seconds;
+     decide_many in chunks of at most acc.KC = 10) and reject four
+     tampered copies with REJECT_TEXTS (_chain_rejects).  One line a file
+     with the peak reserved memory from a reset just before its verifiers,
+     then the phase's seconds.
 Every path runs with the launch counts set to 0 just before it and read
 just after it, and must launch the kernels its pipeline runs: bucket_accum
 on the rowperm paths, bucket_masked on the sortrows paths, finv and
@@ -105,6 +125,7 @@ import hashlib
 import json
 import os
 import pstats
+import shutil
 import subprocess
 import sys
 import time
@@ -115,6 +136,7 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHAIN = os.path.join(REPO, ".chain_cache", "chain_16384_10.bin")
+URS_CACHE = os.path.join(REPO, "build", "urs_cache")  # HALO_TPU_URS_CACHE for this run, emptied at its start
 PROFILE_DIR = os.path.join(REPO, "build", "profile")
 LANES = 65536
 BUCKET_SHAPE = (136, 31 * 256)  # pad', columns of the n = 16384 decider's main group
@@ -440,9 +462,15 @@ def phase_urs(dev):
     from halo_accumulation_tpu_torch.ops.field import FQ
 
     t = time.perf_counter()
-    pp = pp_mod.get_pp(N, dev)
+    pp = pp_mod.get_pp(N, dev)  # generated (the cache is empty) and written to URS_CACHE
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t
+    cached = pp_mod.cache_dir() / f"urs_{N}.npz"
+    t = time.perf_counter()
+    back = pp_mod._load(cached, N, dev)
+    read_s = time.perf_counter() - t
+    if not (torch.equal(back.gs_x, pp.gs_x) and torch.equal(back.gs_y, pp.gs_y) and (back.s, back.h) == (pp.s, pp.h)):
+        raise AssertionError(f"{cached} does not read back as the URS written")
     G = (F.G_X, F.G_Y)
     idx = [0, 1, 2, 4095, 8191, N - 1]
     xs = FQ.to_ints(pp.gs_x[:, idx])
@@ -452,7 +480,8 @@ def phase_urs(dev):
             raise AssertionError(f"URS generator {i} disagrees with the int oracle")
     if pp.s != F.p_mul(pp_mod.gen_scalar(0), G) or pp.h != F.p_mul(pp_mod.gen_scalar(1), G):
         raise AssertionError("URS S/H disagree with the int oracle")
-    emit({"phase": "urs", "n": N, "gen_s": round(gen_s, 3), "sampled": idx})
+    emit({"phase": "urs", "n": N, "gen_s": round(gen_s, 3), "sampled": idx,
+          "cache_file": os.path.relpath(str(cached), REPO), "cache_bytes": cached.stat().st_size, "cache_read_s": read_s})
     return pp
 
 
@@ -1218,15 +1247,9 @@ def _tampered(d, qss, accs, pp):
 
     from halo_accumulation_tpu_torch import chain
     from halo_accumulation_tpu_torch import fields as F
-    from halo_accumulation_tpu_torch import pp as pp_mod
 
     def fast(qs, acs, D=d, key=pp):
         return lambda: chain.verify_chain_fast(D, qs, acs, key)
-
-    def swapped(i, j):
-        gx, gy = pp.gs_x.clone(), pp.gs_y.clone()
-        gx[:, [i, j]], gy[:, [i, j]] = gx[:, [j, i]], gy[:, [j, i]]
-        return pp_mod.PublicParams(pp.n, gx, gy, pp.s, pp.h)
 
     def bumped(a):
         return dataclasses.replace(a, v=(a.v + 1) % F.R)
@@ -1245,8 +1268,8 @@ def _tampered(d, qss, accs, pp):
         (T["z"].format(k=0), fast(qss[:1], [dataclasses.replace(a0, z=(a0.z + 1) % F.R)])),
         (T["d"].format(k=0), fast(qss[:1], accs[:1], D=d + 1)),
         (T["length"], fast([[short] + qss[0][1:]], accs[:1])),
-        (T["u0"].format(b=0), fast(qss[:1], accs[:1], key=swapped(0, 1))),
-        (T["u"], fast(qss[:1], accs[:1], key=swapped(2, 3))),
+        (T["u0"].format(b=0), fast(qss[:1], accs[:1], key=_swapped(pp, 0, 1))),
+        (T["u"], fast(qss[:1], accs[:1], key=_swapped(pp, 2, 3))),
     ]
 
 
@@ -1310,8 +1333,8 @@ def _equal_commits(dev, launches, widths) -> dict:
     return out
 
 
-def _sharded(pp, launches, widths) -> dict:
-    """msm_sharded on a one-rank NCCL mesh against msm at N points, and
+def _sharded(pp, mesh, launches, widths) -> dict:
+    """msm_sharded on the one-rank NCCL mesh against msm at N points, and
     check_device(mesh=) against check_device on chain_16384_10.bin's first
     claim and on a copy with U off by one generator."""
     import dataclasses
@@ -1323,41 +1346,34 @@ def _sharded(pp, launches, widths) -> dict:
     from halo_accumulation_tpu_torch.ops.field import FR
     from halo_accumulation_tpu_torch.parallel import msm_sharded as sh
 
-    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one rank needs no network: loopback only
-    mesh = sh.make_mesh()
-    try:
-        rng = np.random.default_rng(SEED)
-        s = FR.from_ints([int.from_bytes(rng.bytes(40), "little") % F.R for _ in range(N)], pp.device)
-        P = pp.gs_points(N)
-        ref = msm.msm(P, s)
-        got = {}
-        sec = counted("msm_sharded", MUST_LAUNCH["staged"],
-                      lambda: got.update(R=sh.msm_sharded(sh.shard_points(P, mesh), s, mesh)), launches, widths)
-        if not bool(cv.peq(got["R"], ref)):
-            raise AssertionError("msm_sharded on one rank differs from msm")
-        _, qss, _ = chain.load_chain(CHAIN)
-        q = qss[0][0]
-        bad = dataclasses.replace(q.pi, U=F.p_add(q.pi.U, pp.gs_host(1)[0]))
-        plain = [bool(pcdl.check_device(q.C, q.d, q.z, q.v, pi, pp)) for pi in (q.pi, bad)]
-        verdicts = []
-        check_s = counted("check_device_mesh", MUST_LAUNCH["staged"] | VERIFY_ALSO,
-                          lambda: verdicts.extend(bool(pcdl.check_device(q.C, q.d, q.z, q.v, pi, pp, mesh=mesh))
-                                                  for pi in (q.pi, bad)), launches, widths)
-        if verdicts != plain or plain != [True, False]:
-            raise AssertionError(f"check_device(mesh=) verdicts {verdicts}, without a mesh {plain}")
-        return {"backend": dist.get_backend(), "world_size": dist.get_world_size(), "n": N,
-                "msm_sharded_s": sec, "check_device_mesh_s": check_s, "verdicts": verdicts}
-    finally:
-        dist.destroy_process_group()
+    rng = np.random.default_rng(SEED)
+    s = FR.from_ints([int.from_bytes(rng.bytes(40), "little") % F.R for _ in range(N)], pp.device)
+    P = pp.gs_points(N)
+    ref = msm.msm(P, s)
+    got = {}
+    sec = counted("msm_sharded", MUST_LAUNCH["staged"],
+                  lambda: got.update(R=sh.msm_sharded(sh.shard_points(P, mesh), s, mesh)), launches, widths)
+    if not bool(cv.peq(got["R"], ref)):
+        raise AssertionError("msm_sharded on one rank differs from msm")
+    _, qss, _ = chain.load_chain(CHAIN)
+    q = qss[0][0]
+    bad = dataclasses.replace(q.pi, U=F.p_add(q.pi.U, pp.gs_host(1)[0]))
+    plain = [bool(pcdl.check_device(q.C, q.d, q.z, q.v, pi, pp)) for pi in (q.pi, bad)]
+    verdicts = []
+    check_s = counted("check_device_mesh", MUST_LAUNCH["staged"] | VERIFY_ALSO,
+                      lambda: verdicts.extend(bool(pcdl.check_device(q.C, q.d, q.z, q.v, pi, pp, mesh=mesh))
+                                              for pi in (q.pi, bad)), launches, widths)
+    if verdicts != plain or plain != [True, False]:
+        raise AssertionError(f"check_device(mesh=) verdicts {verdicts}, without a mesh {plain}")
+    return {"backend": dist.get_backend(), "world_size": dist.get_world_size(), "n": N,
+            "msm_sharded_s": sec, "check_device_mesh_s": check_s, "verdicts": verdicts}
 
 
-def _staged_profiles(pp) -> dict:
+def _staged_profiles(pp, mesh) -> dict:
     """One warm run of each staged path under torch.profiler (_profiled):
     a prover step, verify_chain and decide_many on chain_16384_10.bin, and
     the all-equal commit at N; then msm_sharded under profiling.trace with
     HALO_TPU_TRACE set, whose Chrome trace must hold device events."""
-    import torch.distributed as dist
-
     from halo_accumulation_tpu_torch import chain, fields as F, pcdl, profiling
     from halo_accumulation_tpu_torch.ops.field import FR
     from halo_accumulation_tpu_torch.parallel import msm_sharded as sh
@@ -1377,17 +1393,13 @@ def _staged_profiles(pp) -> dict:
             out[path] = {**_profiled(fn), "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
     rng = np.random.default_rng(SEED + 1)
     s = FR.from_ints([int.from_bytes(rng.bytes(40), "little") % F.R for _ in range(N)], pp.device)
-    mesh = sh.make_mesh()
     tdir = os.path.join(PROFILE_DIR, "trace")
-    try:
-        shard = sh.shard_points(pp.gs_points(N), mesh)
+    shard = sh.shard_points(pp.gs_points(N), mesh)
+    sh.msm_sharded(shard, s, mesh)
+    out["msm_sharded"] = _profiled(lambda: sh.msm_sharded(shard, s, mesh))
+    with env("HALO_TPU_TRACE", tdir), profiling.trace("msm_sharded"):
         sh.msm_sharded(shard, s, mesh)
-        out["msm_sharded"] = _profiled(lambda: sh.msm_sharded(shard, s, mesh))
-        with env("HALO_TPU_TRACE", tdir), profiling.trace("msm_sharded"):
-            sh.msm_sharded(shard, s, mesh)
-            torch.cuda.synchronize()
-    finally:
-        dist.destroy_process_group()
+        torch.cuda.synchronize()
     with open(os.path.join(tdir, "msm_sharded.json")) as f:
         events = json.load(f)["traceEvents"]
     kernels = sum(1 for e in events if e.get("cat") == "kernel")
@@ -1397,10 +1409,10 @@ def _staged_profiles(pp) -> dict:
     return out
 
 
-def phase_staged(pp, smi, launches, widths) -> None:
+def phase_staged(pp, smi, mesh, launches, widths) -> None:
     """The staged backstop and the sharded MSM on the card (see the module
-    docstring, phase 5); padd's and pdbl's launches by width on each of
-    these paths."""
+    docstring, phase 5), the latter on mesh, a one-rank NCCL mesh; padd's
+    and pdbl's launches by width on each of these paths."""
     from halo_accumulation_tpu_torch import chain
 
     raw = open(CHAIN, "rb").read()
@@ -1423,13 +1435,210 @@ def phase_staged(pp, smi, launches, widths) -> None:
     out = {"prove_staged": {"wall_s": prove_s, "bytes_matched": len(rec), "safe_rebuilds": 0,
                             "verify_chain_s": verify_s, "decide_many_s": decide_s, "accepted": True}}
     out["equal_commits"] = _equal_commits(pp.device, launches, widths)
-    out["sharded"] = _sharded(pp, launches, widths)
-    out["profiled"] = _staged_profiles(pp)
+    out["sharded"] = _sharded(pp, mesh, launches, widths)
+    out["profiled"] = _staged_profiles(pp, mesh)
     new = ["prove_staged", "verify_chain_staged_built", "decide_many_staged_built", "msm_sharded",
            "check_device_mesh"] + [f"commit_equal_{n}_{i}" for n in STAGED_COMMIT_N for i in STAGED_SETTINGS]
     emit({"phase": "staged", "card": smi, "n": N, "vs": os.path.basename(CHAIN), **out,
           "launches": {p: launches[p] for p in new},
           "widths": {k: {p: widths[k][p] for p in new} for k in ("padd", "pdbl")}})
+
+
+PMUL_LANES = 1024  # the mesh phase's pmul_shared width
+PMUL_SAMPLE = 8  # lanes of it held to the int oracle
+
+
+def _swapped(pp, i: int, j: int):
+    """A copy of the URS with generators i and j swapped."""
+    from halo_accumulation_tpu_torch import pp as pp_mod
+
+    gx, gy = pp.gs_x.clone(), pp.gs_y.clone()
+    gx[:, [i, j]], gy[:, [i, j]] = gx[:, [j, i]], gy[:, [j, i]]
+    return pp_mod.PublicParams(pp.n, gx, gy, pp.s, pp.h)
+
+
+def _reject_text(fn):
+    """None when fn returns, else the text of the ValueError it raises."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def phase_mesh(pp, smi, mesh, launches, widths) -> None:
+    """The mesh paths on the staged phase's one-rank NCCL mesh, at N (see
+    the module docstring); each path's seconds and launches."""
+    import dataclasses
+
+    from halo_accumulation_tpu_torch import acc, chain, fields as F, pcdl
+    from halo_accumulation_tpu_torch.ops import curve as cv
+    from halo_accumulation_tpu_torch.ops.field import FR
+    from halo_accumulation_tpu_torch.parallel import msm_sharded as sh
+
+    dev = pp.device
+    rng = np.random.default_rng(SEED + 2)
+    coeffs = [int.from_bytes(rng.bytes(40), "little") % F.R for _ in range(N)]
+    z, w = (int.from_bytes(rng.bytes(40), "little") % F.R for _ in range(2))
+    v = sum(c * pow(z, i, F.R) for i, c in enumerate(coeffs)) % F.R
+    cd = FR.from_ints(coeffs, dev)
+    C = pcdl.commit(cd, N - 1, w, pp)
+    got = {}
+    out = {"backend": "nccl", "world_size": mesh.size(), "n": N}
+    with safe_rebuilds() as rebuilds:
+        out["open_mesh_s"] = counted("open_mesh", MUST_LAUNCH["sortrows"],
+                                     lambda: got.update(m=pcdl.open_(np.random.default_rng(3), cd, C, N - 1, z, w, pp,
+                                                                     mesh=mesh, axis=sh.AXIS, v=v)), launches, widths)
+        out["open_single_s"] = wall(lambda: got.update(s=pcdl.open_(np.random.default_rng(3), cd, C, N - 1, z, w, pp, v=v)))
+    if rebuilds:
+        raise AssertionError(f"mesh phase: open_ took its _safe rebuild {len(rebuilds)} times")
+    if got["m"].serialize() != got["s"].serialize():
+        raise AssertionError("open_(mesh=) bytes differ from the single-device open's")
+    pcdl.succinct_check(C, N - 1, z, v, got["m"], pp)
+    out["open_bytes_equal"] = len(got["m"].serialize())
+
+    d, qss, accs = chain.load_chain(CHAIN)
+    claims = [(q.C, q.d, q.z, q.v, q.pi) for qs in qss for q in qs]
+    bad = list(claims)
+    bad[5] = claims[5][:3] + ((claims[5][3] + 1) % F.R, claims[5][4])
+    T = REJECT_TEXTS
+    verdicts = {}
+    out["succinct_check_batch_mesh_s"] = counted(
+        "succinct_check_batch_mesh", {"padd", "pdbl"},
+        lambda: verdicts.update(good=_reject_text(lambda: pcdl.succinct_check_batch(claims, pp, mesh=mesh))),
+        launches, widths)
+    verdicts["bad"] = _reject_text(lambda: pcdl.succinct_check_batch(bad, pp, mesh=mesh))
+    single = [_reject_text(lambda: pcdl.succinct_check_batch(c, pp)) for c in (claims, bad)]
+    if [verdicts["good"], verdicts["bad"]] != single or single != [None, T["row"].format(b=5)]:
+        raise AssertionError(f"succinct_check_batch(mesh=): {verdicts}, without a mesh {single}")
+    # rows and msm_sharded (stage 1 of the staged pipeline): no bucket kernel
+    out["verify_chain_mesh_s"] = counted("verify_chain_mesh", MUST_LAUNCH["staged"] | VERIFY_ALSO,
+                                         lambda: acc.verify_chain(d, qss, accs, pp, mesh=mesh), launches, widths)
+    out["verify_chain_mesh_warm_s"] = wall(lambda: acc.verify_chain(d, qss, accs, pp, mesh=mesh))
+    q4 = qss[4][1]
+    q4_c = dataclasses.replace(q4, pi=dataclasses.replace(q4.pi, c=(q4.pi.c + 1) % F.R))
+    last = dataclasses.replace(accs[-1], v=(accs[-1].v + 1) % F.R)
+    tampered = [(T["v"].format(k=len(accs) - 1), (qss, accs[:-1] + [last], pp)),
+                (T["row"].format(b=8), (qss[:4] + [[qss[4][0], q4_c]] + qss[5:], accs, pp)),
+                (T["u0"].format(b=0), (qss, accs, _swapped(pp, 0, 1))),
+                (T["u"], (qss, accs, _swapped(pp, 2, 3)))]
+    for text, (qs, ac, key) in tampered:
+        m = _reject_text(lambda: acc.verify_chain(d, qs, ac, key, mesh=mesh))
+        s1 = _reject_text(lambda: acc.verify_chain(d, qs, ac, key))
+        if m != s1 or m != text:
+            raise AssertionError(f"verify_chain(mesh=) rejected with {m!r}, without a mesh {s1!r}, expected {text!r}")
+    out["verify_chain_mesh_rejected"] = [t for t, _ in tampered]
+
+    k = int.from_bytes(rng.bytes(40), "little") % F.R
+    P = pp.gs_points(PMUL_LANES)
+    out["pmul_shared_s"] = counted("pmul_shared", {"padd", "pdbl"},
+                                   lambda: got.update(p=cv.pmul_shared(FR.from_ints([k], dev)[:, 0], P)), launches, widths)
+    idx = [0, 1, 2, 511, 512, 1000, 1022, PMUL_LANES - 1][:PMUL_SAMPLE]
+    gs = pp.gs_host(PMUL_LANES)
+    if cv.to_host(cv.PointVec(*(a[:, idx] for a in got["p"]))) != [F.p_mul(k, gs[i]) for i in idx]:
+        raise AssertionError("pmul_shared differs from fields.p_mul")
+    out["pmul_shared_lanes"] = PMUL_LANES
+    paths = ("open_mesh", "succinct_check_batch_mesh", "verify_chain_mesh", "pmul_shared")
+    emit({"phase": "mesh", "card": smi, **out, "launches": {p: launches[p] for p in paths},
+          "widths": {kk: {p: widths[kk][p] for p in paths} for kk in ("padd", "pdbl", "bucket_masked")}})
+
+
+CHAIN_FILES = tuple(f"chain_{n}_{k}.bin" for n in (512, 1024, 2048, 4096, 8192, 16384) for k in (10, 100)) + (
+    "chain_65536_4.bin",)
+ROWPERM_MAX_K = 10  # rowperm runs on the files with at most this many steps
+
+
+def _chain_rejects(d, qss, accs, pp):
+    """[(verifier, expected text, call)] on tampered copies of a chain: the
+    last accumulator's v + 1 through both verifiers (verify_chain's host
+    step check; decide_many's decider of that step, whose row fails), and
+    the last step's fresh claim with its U replaced by another point (U
+    feeds that step's C, so the host step check rejects C_bar first, as in
+    the JAX package) or with its c + 1 (only its row equation reads c)."""
+    import dataclasses
+
+    from halo_accumulation_tpu_torch import chain, fields as F
+
+    T = REJECT_TEXTS
+    K = len(accs)
+    last = dataclasses.replace(accs[-1], v=(accs[-1].v + 1) % F.R)
+    q = qss[-1][-1]
+    b = sum(len(qs) for qs in qss) - 1
+    bad_u = dataclasses.replace(q, pi=dataclasses.replace(q.pi, U=F.p_add(q.pi.U, pp.gs_host(1)[0])))
+    bad_c = dataclasses.replace(q, pi=dataclasses.replace(q.pi, c=(q.pi.c + 1) % F.R))
+    with_q = lambda x: qss[:-1] + [qss[-1][:-1] + [x]]  # noqa: E731
+    return [
+        ("verify_chain", T["v"].format(k=K - 1), lambda: chain.verify_chain_fast(d, qss, accs[:-1] + [last], pp)),
+        ("decide_many", T["row"].format(b=0), lambda: chain.verify_chain_slow(accs[:-1] + [last], pp)),
+        ("verify_chain", T["c_bar"].format(k=K - 1), lambda: chain.verify_chain_fast(d, with_q(bad_u), accs, pp)),
+        ("verify_chain", T["row"].format(b=b), lambda: chain.verify_chain_fast(d, with_q(bad_c), accs, pp)),
+    ]
+
+
+def phase_chains(dev, smi, launches, widths) -> None:
+    """Every committed chain on the card (see the module docstring): one
+    line a file, then the phase's seconds."""
+    from halo_accumulation_tpu_torch import chain, pcdl
+    from halo_accumulation_tpu_torch import pp as pp_mod
+
+    t0 = time.perf_counter()
+    cache = os.path.join(REPO, ".chain_cache")
+    found = sorted(f for f in os.listdir(cache) if f.startswith("chain_") and f.endswith(".bin"))
+    if sorted(CHAIN_FILES) != found:
+        raise AssertionError(f".chain_cache holds {found}, expected {sorted(CHAIN_FILES)}")
+    built = {}
+    for name in CHAIN_FILES:
+        path = os.path.join(cache, name)
+        d, qss, accs = chain.load_chain(path)
+        n, K = d + 1, len(accs)
+        pp = pp_mod.get_pp(n, dev)
+        line = {"phase": "chains", "file": name, "n": n, "K": K, "card": smi}
+        if n not in built:  # every file was built from default_rng(7): its first step is this one
+            got = {}
+            with safe_rebuilds() as rebuilds:
+                s = counted(f"chains_build_{n}", MUST_LAUNCH["sortrows"] | OPEN_DEVICE_ALSO,
+                            lambda: got.update(c=chain.build_chain(np.random.default_rng(7), n, 1, pp)), launches, widths)
+            if rebuilds:
+                raise AssertionError(f"build_chain at n = {n} took open_'s _safe rebuild")
+            built[n] = b"".join(chain.step_records(*got["c"][1:]))
+            line["first_step_build_s"] = s
+        raw = open(path, "rb").read()
+        off = 16 + (8 if raw[:8] == chain.CHAIN_MAGIC else 0)
+        if raw[off : off + len(built[n])] != built[n]:
+            raise AssertionError(f"build_chain(default_rng(7), {n}, 1) differs from {name}'s first step")
+        line["first_step_bytes_equal"] = len(built[n])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for impl in ("sortrows", "rowperm") if K <= ROWPERM_MAX_K else ("sortrows",):
+            chunks, real = [], pcdl.check_many_device
+            pcdl.check_many_device = lambda checks, p: chunks.append(len(checks)) or real(checks, p)
+            try:
+                with env("HALO_TPU_MSM_IMPL", impl):
+                    must = MUST_LAUNCH[impl] | VERIFY_ALSO
+                    tag = f"chains_{n}_{K}_{impl}"
+                    res = {"verify_chain_s": [counted(f"{tag}_verify_chain", must,
+                                                      lambda: chain.verify_chain_fast(d, qss, accs, pp), launches, widths),
+                                              wall(lambda: chain.verify_chain_fast(d, qss, accs, pp))]}
+                    chunks.clear()
+                    res["decide_many_s"] = [counted(f"{tag}_decide_many", must, lambda: chain.verify_chain_slow(accs, pp),
+                                                    launches, widths)]
+                    res["decide_many_chunks"] = list(chunks)
+                    res["decide_many_s"].append(wall(lambda: chain.verify_chain_slow(accs, pp)))
+                    rejects = _chain_rejects(d, qss, accs, pp)
+                    for _, text, fn in rejects:
+                        _expect_reject(fn, text)
+                    res["rejected"] = [[v, t] for v, t, _ in rejects]
+            finally:
+                pcdl.check_many_device = real
+            want = [min(10, K - i) for i in range(0, K, 10)]
+            if res["decide_many_chunks"] != want:
+                raise AssertionError(f"{name} {impl}: decide_many chunks {res['decide_many_chunks']}, expected {want}")
+            line[impl] = res
+        line["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+        line["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        emit(line)
+    emit({"phase": "chains_done", "files": len(CHAIN_FILES), "card": smi, "phase_s": time.perf_counter() - t0,
+          "rowperm_on": [f for f in CHAIN_FILES if int(f[:-4].split("_")[2]) <= ROWPERM_MAX_K]})
 
 
 def phase_chain(pp, smi, launches, widths):
@@ -1637,6 +1846,8 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     t0 = time.perf_counter()
+    shutil.rmtree(URS_CACHE, ignore_errors=True)
+    os.environ["HALO_TPU_URS_CACHE"] = URS_CACHE
     smi, sm_mhz = phase_device()
     phase_native(smi)
     pp = phase_urs(dev)
@@ -1647,7 +1858,17 @@ def main() -> int:
     phase_open_copies(pp, smi)
     phase_api(smi)
     paths, warm = phase_chain(pp, smi, launches, widths)
-    phase_staged(pp, smi, launches, widths)
+    import torch.distributed as dist
+
+    from halo_accumulation_tpu_torch.parallel import msm_sharded as sh
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one rank needs no network: loopback only
+    mesh = sh.make_mesh()  # one NCCL rank, formed once for the staged and mesh phases
+    try:
+        phase_staged(pp, smi, mesh, launches, widths)
+        phase_mesh(pp, smi, mesh, launches, widths)
+    finally:
+        dist.destroy_process_group()
     with env("HALO_TPU_MSM_IMPL", "sortrows"):
         phase_profile(paths, warm, smi)
     from halo_accumulation_tpu_torch import chain
@@ -1656,6 +1877,7 @@ def main() -> int:
         with env("HALO_TPU_MSM_IMPL", impl), env("HALO_TPU_OPEN_DEVICE", open_device):
             phase_profile({f"{path}_1step": lambda: chain.build_chain(np.random.default_rng(7), N, 1, pp)}, {}, smi)
     phase_graphs(pp, smi, *chain.load_chain(CHAIN))
+    phase_chains(dev, smi, launches, widths)
     from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
 
     kernels = []

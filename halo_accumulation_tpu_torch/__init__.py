@@ -32,6 +32,10 @@ the JAX package's façade, verb for verb:
 
 On the card the verdicts of `verify_chain` and `decide_many` and each
 device-transcript open run as captured CUDA graphs (`runtime.graphed`).
+`parallel/` holds the multi-device paths on torch.distributed (NCCL on
+cards, gloo on the CPU): the sharded MSM, the `mesh=` argument of
+`pcdl.open_`, `pcdl.succinct_check_batch` and `acc.verify_chain`, and the
+dry run `parallel.dryrun.dryrun_multichip`.
 
 It imports torch and never jax.
 """

@@ -183,23 +183,34 @@ def decider(acc: Accumulator, pp: pp_mod.PublicParams):
     pcdl.check(acc.C_bar, acc.d, acc.z, acc.v, acc.pi, pp)
 
 
+# claims a decide_many chunk batches: one row MSM and one K-fold deferred MSM
+# (one CUDA graph keyed (B, M, K, n)) for at most this many
+KC = 10
+
+
 def decide_many(accs: list[Accumulator], pp: pp_mod.PublicParams):
-    """The decider for every accumulator: all K full checks batched on the
-    device (one row MSM, one K-fold deferred MSM), one copy of the verdicts
-    to the host; a False verdict re-checks that step through the
-    measured-pad path, which raises the decider's precise error."""
+    """The decider for every accumulator: the full checks batched on the
+    device in chunks of at most KC claims (each chunk one row MSM and one
+    K-fold deferred MSM; a full chunk replays one graph), the verdicts
+    joined on the device and copied to the host once; a False verdict
+    re-checks that step through the measured-pad path, which raises the
+    decider's precise error.  The chunks bound the deferred MSMs' memory:
+    the JAX package runs one claim at a time."""
     if not accs:
         return
     if any(a.d != accs[0].d for a in accs):
         oks = torch.stack([pcdl.check_device(a.C_bar, a.d, a.z, a.v, a.pi, pp) for a in accs])
     else:
-        oks = pcdl.check_many_device([(a.C_bar, a.d, a.z, a.v, a.pi) for a in accs], pp)
+        claims = [(a.C_bar, a.d, a.z, a.v, a.pi) for a in accs]
+        chunks = [pcdl.check_many_device(claims[i : i + KC], pp) for i in range(0, len(claims), KC)]
+        oks = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
     for a, ok in zip(accs, oks.cpu().tolist()):
         if not ok:
             pcdl.recheck(a.C_bar, a.d, a.z, a.v, a.pi, pp)
 
 
-def verify_chain(D: int, qss: list[list[Instance]], accs: list[Accumulator], pp: pp_mod.PublicParams):
+def verify_chain(D: int, qss: list[list[Instance]], accs: list[Accumulator], pp: pp_mod.PublicParams,
+                 mesh=None, axis: str | None = None):
     """The verifier at every chain step plus one final decider (the
     reference's fast-path helper), batched:
 
@@ -212,6 +223,13 @@ def verify_chain(D: int, qss: list[list[Instance]], accs: list[Accumulator], pp:
       * per-step challenges and equalities run on the host meanwhile,
       * one copy brings every device verdict back.
 
+    mesh: a 1-D DeviceMesh (parallel/msm_sharded.make_mesh): the JAX
+    package's non-fused path, no graph: the succinct rows and the U_0 rows
+    split over its ranks (pcdl.rows_sharded), and the final decider through
+    pcdl.check_device(mesh=), which splits its deferred MSM when the mesh's
+    size divides n and else runs the single-device check.  Every rank must call it with the same arguments; each
+    gets the same verdicts and raises the same error.
+
     Raises ValueError on any rejection, and AssertionError (as the JAX
     package does) when qss and accs differ in length."""
     if len(qss) != len(accs):
@@ -223,16 +241,21 @@ def verify_chain(D: int, qss: list[list[Instance]], accs: list[Accumulator], pp:
         flat.extend((q.C, q.d, q.z, q.v, q.pi) for q in qs)
 
     # ---- 1. enqueue all device work --------------------------------------
-    parts = [pcdl.succinct_check_parts(C, d, z, v, pi, pp) for (C, d, z, v, pi) in flat]
-    dh, dpts, dscs = pcdl.succinct_check_parts(last.C_bar, last.d, last.z, last.v, last.pi, pp)
     g0, g1 = pp.gs_host(2)
-    rows = [(p[1], p[2]) for p in parts]
-    rows += [([g0, g1, a.pi_V.U], [a.pi_V.h[0], a.pi_V.h[1], F.R - 1]) for a in accs]
-    rows.append((dpts, dscs))
-    # one CUDA graph under the JAX package's condition for its one-program
-    # verdict (_verify_chain_fused); eager otherwise
-    fused = msm_mod._impl() == "sortrows" and len(flat) <= 32 and len(accs) <= 32
-    ok_dev = pcdl.verdicts_device(rows, [dh], [last.pi.U], last.d, pp, graph=fused)
+    u0_rows = [([g0, g1, a.pi_V.U], [a.pi_V.h[0], a.pi_V.h[1], F.R - 1]) for a in accs]
+    if mesh is None:
+        parts = [pcdl.succinct_check_parts(C, d, z, v, pi, pp) for (C, d, z, v, pi) in flat]
+        dh, dpts, dscs = pcdl.succinct_check_parts(last.C_bar, last.d, last.z, last.v, last.pi, pp)
+        rows = [(p[1], p[2]) for p in parts] + u0_rows + [(dpts, dscs)]
+        # one CUDA graph under the JAX package's condition for its one-program
+        # verdict (_verify_chain_fused); eager otherwise
+        fused = msm_mod._impl() == "sortrows" and len(flat) <= 32 and len(accs) <= 32
+        ok_dev = pcdl.verdicts_device(rows, [dh], [last.pi.U], last.d, pp, graph=fused)
+    else:
+        parts, ok_succ = pcdl.succinct_check_batch_device(flat, pp, mesh, axis)
+        ok_u0 = pcdl.rows_sharded(u0_rows, pp, mesh, axis, pow2=False)
+        ok_dec = pcdl.check_device(last.C_bar, last.d, last.z, last.v, last.pi, pp, mesh=mesh, axis=axis)
+        ok_dev = torch.cat([ok_succ[: len(flat)], ok_u0[: len(accs)], ok_dec.reshape(1)])
 
     # ---- 2. per-step host bookkeeping --------------------------------------
     results = [(p[0], flat[b][4].U) for b, p in enumerate(parts)]

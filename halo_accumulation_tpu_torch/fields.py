@@ -16,6 +16,9 @@ R = 0x40000000000000000000000000000000224698FC0994A8DD8C46EB2100000001
 
 # Both primes are 2^254 + C with C < 2^126: the limb code folds bit 255
 # back in as 2^255 = -2C (mod p) (see ops/field.py).
+C_Q = Q - (1 << 254)
+C_R = R - (1 << 254)
+assert C_Q < (1 << 126) and C_R < (1 << 126)
 
 B_COEFF = 5
 G_X = Q - 1
@@ -53,6 +56,14 @@ def sqrt_mod(a: int, p: int) -> int | None:
         t = t * c % p
         r = r * b % p
     return r
+
+
+def on_curve(P) -> bool:
+    """Whether P (None or (x, y)) lies on y^2 = x^3 + 5."""
+    if P is INF:
+        return True
+    x, y = P
+    return (y * y - (x * x * x + B_COEFF)) % Q == 0
 
 
 def p_add(P, Qp):
@@ -98,3 +109,16 @@ def p_msm(scalars, points):
     for s, P in zip(scalars, points):
         acc = p_add(acc, p_mul(s, P))
     return acc
+
+
+# arkworks keeps a field element in Montgomery form, a R mod p with R = 2^256
+ARK_MONT_R = 1 << 256
+
+
+def from_ark_montgomery(limbs64, p: int) -> int:
+    """An arkworks BigInt([u64; 4]) in Montgomery form (least significant
+    word first) -> its value mod p."""
+    v = 0
+    for i, w in enumerate(limbs64):
+        v |= int(w) << (64 * i)
+    return v * inv_mod(ARK_MONT_R % p, p) % p

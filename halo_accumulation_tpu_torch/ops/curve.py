@@ -20,8 +20,9 @@ import torch
 
 from halo_accumulation_tpu_torch import fields as F
 from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
-from halo_accumulation_tpu_torch.ops.field import FQ, L, limb_array_to_ints
+from halo_accumulation_tpu_torch.ops.field import FQ, L, W, limb_array_to_ints
 
+B3 = 3 * F.B_COEFF
 
 class PointVec(NamedTuple):
     """Projective point(s): X, Y, Z limb tensors of shape (18, *batch)."""
@@ -78,6 +79,73 @@ def fq_mul(a, b):
     shape = tuple(torch.broadcast_shapes(a.shape, b.shape)[1:])
     out = ck.fmul(a.expand((L,) + shape).reshape(L, -1), b.expand((L,) + shape).reshape(L, -1))
     return out.reshape((L,) + shape)
+
+
+def _stk(*xs):
+    return torch.stack(torch.broadcast_tensors(*xs), dim=1)  # (18, k, *batch)
+
+
+def _unstk(a, k: int):
+    return [a[:, i] for i in range(k)]
+
+
+def padd_mixed(P: PointVec, qx, qy, q_inf=None) -> PointVec:
+    """Complete mixed addition P + (qx : qy : 1), RCB16 algorithm 8 (a = 0),
+    11M + 2m(b3), the multiplies in two stacked FQ calls (torch glue, no
+    kernel, as the JAX package's).  q_inf: a bool mask over the batch whose
+    lanes return P unchanged (an affine point cannot be the identity)."""
+    f = FQ
+    x1, y1, z1 = P
+    s1, s4 = _unstk(f.add(_stk(x1, qx), _stk(y1, qy)), 2)
+    t0, t1, m3, y2z1, x2z1 = _unstk(f.mul(_stk(x1, y1, s1, z1, z1), _stk(qx, qy, s4, qy, qx)), 5)
+    t3 = f.sub(m3, f.add(t0, t1))  # x1 y2 + x2 y1
+    t4, w = _unstk(f.add(_stk(y2z1, x2z1), _stk(y1, x1)), 2)  # y1 + y2 z1, x1 + x2 z1
+    t2b, wb = _unstk(f.mul_small(_stk(z1, w), B3), 2)
+    t0b = f.add(f.add(t0, t0), t0)  # 3 x1 x2
+    z3s = f.add(t1, t2b)
+    t1b = f.sub(t1, t2b)
+    x3a, t2c, y3a, t1c, t0c, z3c = _unstk(f.mul(_stk(t4, t3, wb, t1b, t0b, z3s), _stk(wb, t1b, t0b, z3s, t3, t4)), 6)
+    r1, r2 = _unstk(f.add(_stk(t1c, z3c), _stk(y3a, t0c)), 2)
+    R = PointVec(f.sub(t2c, x3a), r1, r2)
+    return R if q_inf is None else pselect(q_inf, P, R)
+
+
+def scalar_bits_msb(k_limbs, nbits: int = 255):
+    """Fr canonical limbs (18,) -> (nbits,) bool bits, most significant
+    first."""
+    idx = torch.arange(nbits - 1, -1, -1, device=k_limbs.device)
+    return ((k_limbs[idx // W] >> (idx % W)) & 1).bool()
+
+
+def pmul_shared(k_limbs, P: PointVec, nbits: int = 255) -> PointVec:
+    """k P for every point of P with ONE scalar k (Fr canonical limbs,
+    (18,)): 2-bit windows over the table {0, P, 2P, 3P}, msb first, each
+    window two doublings (one pdbl launch) and one complete add (adding the
+    identity for a zero digit is safe).  The digits are read on the device:
+    no host copy."""
+    nwin = (nbits + 1) // 2
+    dev = P.x.device
+    P2 = pdbl(P)
+    table = [torch.stack([a, b, c, d]) for a, b, c, d in zip(identity(P.batch_shape, dev), P, P2, padd(P2, P))]
+    bit = torch.arange(2 * nwin, device=dev)  # 2 nwin <= 256 < 18 limbs x 15 bits
+    bits = (k_limbs[bit // W] >> (bit % W)) & 1
+    digits = (bits[0::2] + 2 * bits[1::2]).flip(0)  # window i holds bits 2 (nwin - 1 - i) and up
+    acc = identity(P.batch_shape, dev)
+    for i in range(nwin):
+        acc = padd(pdbl(acc, 2), PointVec(*(t.index_select(0, digits[i : i + 1])[0] for t in table)))
+    return acc
+
+
+def gather_points(P: PointVec, idx, axis: int = 0) -> PointVec:
+    """Gather along a batch axis (jnp.take's semantics for in-range idx)."""
+    ax = axis + 1
+    idx = torch.as_tensor(idx, device=P.x.device)
+
+    def take(c):
+        out = c.index_select(ax, idx.reshape(-1))
+        return out.reshape(tuple(c.shape[:ax]) + tuple(idx.shape) + tuple(c.shape[ax + 1 :]))
+
+    return PointVec(*(take(c) for c in P))
 
 
 def pneg(P: PointVec) -> PointVec:

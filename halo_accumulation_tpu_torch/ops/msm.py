@@ -851,14 +851,20 @@ def fixed_base_pair(urs, scalars, route, safe: bool = False):
     """One IPA round's L and R over the first n generators: the MSMs of
     scalars over the points of route 0 and of route 1, ([L, R], ok flag).
     The sort-payload pipeline computes both in one pass at the half-width's
-    window and pads; otherwise, and when safe (the re-run after an
+    window and pads; where fixed_base_many_flagged takes its exact ladder
+    (up to _LADDER_MAX points outside the sort-payload pipeline) both are
+    that one batched ladder; otherwise, and when safe (the re-run after an
     overflow), two fixed_base calls."""
     n = scalars.shape[1]
     if n > _LADDER_MAX and not safe and _sortrows(n):
         c = window_size(n // 2)
         return _sortrows_msm(urs.gs_planes(n), scalars, c, pinned_pads(n // 2, c), _beffs(c),
                              route=route, nroute=2)
-    return [fixed_base(urs, e, projective=True) for e in _split_routes(scalars, route)], _true(scalars.device)
+    routes = _split_routes(scalars, route)
+    if n <= _LADDER_MAX and not _sortrows(n):
+        LR, ok = fixed_base_many_flagged(urs, torch.stack(routes, dim=1))
+        return [cv.PointVec(*(a[:, i] for a in LR)) for i in range(2)], ok
+    return [fixed_base(urs, e, projective=True) for e in routes], _true(scalars.device)
 
 
 def fixed_base_many_flagged(urs, scalars_many):

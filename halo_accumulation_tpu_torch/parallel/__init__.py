@@ -1,1 +1,3 @@
-"""Multi-device paths of the port, on torch.distributed."""
+"""Multi-device paths of the port, on torch.distributed: the sharded MSM
+and the collectives of the mesh paths (msm_sharded), and the dry run
+(dryrun)."""

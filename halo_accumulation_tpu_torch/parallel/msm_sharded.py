@@ -9,7 +9,9 @@ with complete adds (group addition is no reduction a collective knows, so
 this is an all-gather and a local tree rather than an all-reduce), and
 every rank runs the weighting and the window combine itself: the result
 is the same point on every rank.  The exchange is O(W B) points whatever
-N is.
+N is.  The mesh paths of pcdl and acc use the same exchange for their
+rows and for the fold's partial L and R (gather_rows, gather_lanes,
+sum_over_ranks, all_true).
 
 The mesh is a 1-D `torch.distributed.device_mesh.DeviceMesh` whose one
 dimension is named AXIS.  Its backend follows the tensors' device: NCCL on
@@ -77,12 +79,41 @@ def shard_points(Pv: cv.PointVec, mesh: DeviceMesh) -> cv.PointVec:
 
 
 def _all_gather(stacked, mesh: DeviceMesh):
-    """(3, W, 18, B) on every rank -> (size, 3, W, 18, B), rank order."""
+    """A tensor of one shape on every rank, e.g. (3, W, 18, B) -> (size,
+    3, W, 18, B), rank order."""
     nd = mesh.size()
+    stacked = stacked.contiguous()
     out = stacked.new_empty((nd * stacked.shape[0],) + tuple(stacked.shape[1:]))
     gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
     gather(out, stacked, group=mesh.get_group(AXIS))
     return out.reshape((nd,) + tuple(stacked.shape))
+
+
+def gather_rows(local, mesh: DeviceMesh):
+    """(b, ...) on every rank -> (size * b, ...), rank order; bool rows go
+    over as int64 (gloo has no bool collectives)."""
+    got = _all_gather(local.to(torch.int64), mesh)
+    got = got.reshape((-1,) + tuple(local.shape[1:]))
+    return got.bool() if local.dtype == torch.bool else got
+
+
+def gather_lanes(a, mesh: DeviceMesh):
+    """(18, w) lanes on every rank -> (18, size * w), rank order."""
+    return _all_gather(a, mesh).permute(1, 0, 2).reshape(a.shape[0], -1)
+
+
+def all_true(ok, mesh: DeviceMesh):
+    """The AND over the ranks of a bool (a 0-dim tensor), on every rank."""
+    t = ok.to(torch.int64).reshape(1).clone()
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=mesh.get_group(AXIS))
+    return t[0].bool()
+
+
+def sum_over_ranks(P: cv.PointVec, mesh: DeviceMesh) -> cv.PointVec:
+    """Each rank's points (18, B) summed over the ranks, the same tree as
+    msm_sharded's: -> (18, B) on every rank."""
+    out = _tree_add(_all_gather(torch.stack([c[None] for c in P]), mesh))  # (3, 1, 18, B)
+    return cv.PointVec(out[0, 0], out[1, 0], out[2, 0])
 
 
 def _tree_add(allp):
@@ -126,5 +157,5 @@ def msm_sharded(points: cv.PointVec, scalars, mesh: DeviceMesh, c: int | None = 
         "sharded MSM scatter would exceed the memory budget; shard more devices or lower c"
     )
     S = msm_mod._bucket_sums_chunk(points, digits[:, r * w : (r + 1) * w], c, pad)  # (W, 18, B) x 3
-    out = _tree_add(_all_gather(torch.stack(S).contiguous(), mesh))
+    out = _tree_add(_all_gather(torch.stack(S), mesh))
     return msm_mod._weight_and_combine(tuple(out[i] for i in range(3)), c)

@@ -27,6 +27,10 @@ commit :99, open :120, succinct_check :252, check :323):
     graphs (`runtime.graphed`): the device open (`_open_rounds`, its
     `ofd4`/`ofdF` segments) and the deciders' verdicts (`_verdicts`: row
     MSM, deferred n-point MSM, U equality; its `_deciders_fused`).
+  * Under a mesh (parallel/msm_sharded.make_mesh), as in the JAX package:
+    the batched checks' rows split over the ranks (rows_sharded),
+    check_device's deferred MSM runs on msm_sharded, and open_ splits the
+    fold's width (_open_sharded); every rank gets the single-device result.
 
 Proof objects live on the host as canonical ints.
 """
@@ -188,7 +192,7 @@ def commit(coeffs, d: int, w: int | None, pp: pp_mod.PublicParams) -> Point:
 
 
 def open_(rng, coeffs, C: Point, d: int, z: int, w: int | None, pp: pp_mod.PublicParams,
-          _safe: bool = False, v: int | None = None) -> EvalProof:
+          _safe: bool = False, mesh=None, axis: str | None = None, v: int | None = None) -> EvalProof:
     """IPA opening proof of p(z) = v for the polynomial committed in C
     (pcdl.rs:120-242).  rng: a numpy Generator, drawn from exactly as the
     JAX prover draws (the hiding polynomial's k - 1 coefficients, then
@@ -202,8 +206,23 @@ def open_(rng, coeffs, C: Point, d: int, z: int, w: int | None, pp: pp_mod.Publi
     transcript.  Pinned-pad flags stay on the device and are checked once
     at the end; on the astronomically rare overflow the proof is rebuilt
     with _safe=True (every MSM measures its pads), drawing fresh prover
-    randomness, as the JAX package does."""
+    randomness, as the JAX package does.
+
+    mesh: a 1-D DeviceMesh (parallel/msm_sharded.make_mesh) to split the
+    width of the fold over its ranks (_open_sharded; the JAX package shards
+    the width-n fold vectors and the URS the same way): every rank calls
+    open_ with the same arguments, its rng in the same state, and gets the
+    proof the single-device open writes, byte for byte.  A mesh takes the
+    host transcript, as in the JAX package.  When the mesh's size does not
+    divide n, every rank runs the single-device open instead, as
+    check_device does.  axis: the mesh's dimension name (msm_sharded.AXIS)."""
     n = _check_degree(d, pp)
+    if mesh is not None:
+        from halo_accumulation_tpu_torch.parallel import msm_sharded as sh
+
+        assert axis in (None, sh.AXIS), f"the mesh's one dimension is {sh.AXIS!r}"
+        if n % mesh.size():
+            mesh = None
     dev = pp.device
     if isinstance(coeffs, list):
         coeffs = FR.from_ints(coeffs, dev)
@@ -237,10 +256,15 @@ def open_(rng, coeffs, C: Point, d: int, z: int, w: int | None, pp: pp_mod.Publi
     cs = coeffs
     if k < n:
         cs = torch.cat([cs, FR.zeros((n - k,), dev)], dim=1)
-    if (n > msm_mod._LADDER_MAX and not _safe and msm_mod._sortrows(n) and H_prime is not None
+    if (mesh is None and n > msm_mod._LADDER_MAX and not _safe and msm_mod._sortrows(n) and H_prime is not None
             and os.environ.get("HALO_TPU_OPEN_DEVICE", "1") != "0"):
         return _open_device(rng, orig_coeffs, cs, C, d, z, w, pp, C_bar, w_prime, xi, H_prime)
     zs = poly_mod.powers(zl, n)
+    if mesh is not None:
+        proof = _open_sharded(cs, zs, xi, H_prime, pp, mesh, _safe)
+        if proof is None:  # a pinned pad overflowed on some rank: every rank rebuilds
+            return open_(rng, orig_coeffs, C, d, z, w, pp, _safe=True, mesh=mesh, axis=axis)
+        return EvalProof(*proof, C_bar, w_prime)
     t = FR.from_int(1, (n,), dev)
     Ls, Rs, flags = [], [], []
     m = n // 2
@@ -248,15 +272,8 @@ def open_(rng, coeffs, C: Point, d: int, z: int, w: int | None, pp: pp_mod.Publi
         s_comb, route, dot_l, dot_r = _open_round_pre(cs, zs, t, m)
         (Lp, Rp), okv = msm_mod.fixed_base_pair(pp, s_comb, route, safe=_safe)
         flags.append(okv)
-        Lph, Rph, dl, dr = _fetch_round(Lp, Rp, dot_l, dot_r)
-        Lh = H.p_add(Lph, H.p_mul(dl, H_prime))
-        Rh = H.p_add(Rph, H.p_mul(dr, H_prime))
-        Ls.append(Lh)
-        Rs.append(Rh)
-        xi = tr.rho_0(ser.ser_scalar(xi), ser.ser_point(Lh), ser.ser_point(Rh))
-        xi_inv = pow(xi, -1, F.R)
-        cs, zs, t = _open_round_fold(cs, zs, t, m, FR.from_ints([xi], dev)[:, 0],
-                                     FR.from_ints([xi_inv], dev)[:, 0])
+        xi = _host_round(Lp, Rp, dot_l, dot_r, H_prime, xi, Ls, Rs)
+        cs, zs, t = _open_round_fold(cs, zs, t, m, *_challenge_limbs(xi, dev))
         m //= 2
 
     if flags and not bool(torch.stack(flags).all()):
@@ -268,6 +285,64 @@ def open_(rng, coeffs, C: Point, d: int, z: int, w: int | None, pp: pp_mod.Publi
     return EvalProof(Ls, Rs, U, c, C_bar, w_prime)
 
 
+def _open_sharded(cs, zs, xi: int, H_prime, pp: pp_mod.PublicParams, mesh, safe: bool):
+    """open_'s host-transcript rounds with the width split over the mesh's
+    ranks.  Rank r holds lanes [r w, (r + 1) w), w = n / size, of the
+    tensor-coefficient vector t and of the URS.  cs and zs, whose live
+    prefix [0, 2m) halves every round, are held whole on every rank and
+    folded there, as are both dot products: s_comb at a rank's lanes reads
+    cs below 2m, and the fold reads lanes j and j + m below 2m, so no
+    coefficient crosses ranks.  The round's arithmetic is the single-device
+    open's (_open_round_pre and _open_round_fold at the rank's lane
+    offset).  A round's exchange is the ranks' partial L and R (each
+    rank's two MSMs over its slice of the URS), summed over the ranks by
+    msm_sharded's all-gather and tree; U gathers t once and runs
+    msm_sharded over the split URS.  -> (Ls, Rs, U, c), or None when a
+    pinned pad overflowed on any rank (the flags are ANDed over the
+    ranks)."""
+    from halo_accumulation_tpu_torch.parallel import msm_sharded as sh
+
+    n, dev = cs.shape[1], cs.device
+    w = n // mesh.size()
+    lo = mesh.get_local_rank(sh.AXIS) * w
+    urs = pp_mod.PublicParams(w, pp.gs_x[:, lo : lo + w], pp.gs_y[:, lo : lo + w], pp.s, pp.h)
+    t = FR.from_int(1, (w,), dev)
+    Ls, Rs, flags = [], [], []
+    m = n // 2
+    while m >= 1:
+        s_loc, route, dot_l, dot_r = _open_round_pre(cs, zs, t, m, lo)
+        e = torch.stack(msm_mod._split_routes(s_loc, route), dim=1)  # (18, 2, w): L's, R's scalars
+        part, ok = msm_mod.fixed_base_many_flagged(urs, e)
+        if safe and not bool(ok):
+            pts = [msm_mod._msm_measured(urs.gs_points(w), e[:, i]) for i in range(2)]
+            part, ok = cv.PointVec(*(torch.stack([p[i] for p in pts], dim=1) for i in range(3))), msm_mod._true(dev)
+        flags.append(ok)
+        LR = sh.sum_over_ranks(part, mesh)
+        xi = _host_round(cv.PointVec(*(a[:, 0] for a in LR)), cv.PointVec(*(a[:, 1] for a in LR)), dot_l, dot_r,
+                         H_prime, xi, Ls, Rs)
+        cs, zs, t = _open_round_fold(cs, zs, t, m, *_challenge_limbs(xi, dev), lo)
+        m //= 2
+    if flags and not bool(sh.all_true(torch.stack(flags).all(), mesh)):
+        return None
+    U = sh.msm_sharded(urs.gs_points(w), sh.gather_lanes(t, mesh), mesh)
+    return Ls, Rs, point_to_host(U), FR.to_ints(cs[:, 0])[0]
+
+
+def _host_round(Lp: cv.PointVec, Rp: cv.PointVec, dot_l, dot_r, H_prime, xi: int, Ls: list, Rs: list) -> int:
+    """A host-transcript round's tail: one copy of its device outputs, L
+    and R completed with the dot products' multiples of H' and appended to
+    Ls and Rs, and the next challenge xi_{i+1} = rho_0(xi_i, L, R)."""
+    Lph, Rph, dl, dr = _fetch_round(Lp, Rp, dot_l, dot_r)
+    Ls.append(H.p_add(Lph, H.p_mul(dl, H_prime)))
+    Rs.append(H.p_add(Rph, H.p_mul(dr, H_prime)))
+    return tr.rho_0(ser.ser_scalar(xi), ser.ser_point(Ls[-1]), ser.ser_point(Rs[-1]))
+
+
+def _challenge_limbs(xi: int, dev):
+    """xi and its inverse as (18,) Fr limb vectors on dev."""
+    return FR.from_ints([xi], dev)[:, 0], FR.from_ints([pow(xi, -1, F.R)], dev)[:, 0]
+
+
 def _fetch_round(Lp: cv.PointVec, Rp: cv.PointVec, dot_l, dot_r):
     """One round's device outputs in ONE copy: both points (host affine)
     and both dot products (canonical ints)."""
@@ -276,9 +351,10 @@ def _fetch_round(Lp: cv.PointVec, Rp: cv.PointVec, dot_l, dot_r):
     return cv.affine_int(x1, y1, z1), cv.affine_int(x2, y2, z2), dl % F.R, dr % F.R
 
 
-def _open_round_pre(cs, zs, t, m: int):
+def _open_round_pre(cs, zs, t, m: int, lane0: int = 0):
     """Pre-fold quantities of one round at width n, half-width m (cs / zs
-    lanes >= 2m are zero, t is dense):
+    lanes >= 2m are zero, t is dense), for t's lanes j in [lane0, lane0 +
+    t.shape[1]) (all n by default; one rank's under a mesh):
 
       s_comb[j] = t[j] * c[(j mod m) + m]  if (j & m) == 0   (L's scalars)
                   t[j] * c[j mod m]        otherwise         (R's scalars)
@@ -287,8 +363,9 @@ def _open_round_pre(cs, zs, t, m: int):
     n = cs.shape[1]
     dev = cs.device
     i = torch.arange(n, device=dev)
-    jm = i & (m - 1)
-    lo = (i & m) == 0
+    j = i[lane0 : lane0 + t.shape[1]]
+    jm = j & (m - 1)
+    lo = (j & m) == 0
     s_comb = FR.mul(t, torch.where(lo[None], cs[:, jm + m], cs[:, jm]))
     route = (~lo).to(torch.int64)
     mask = (i < m)[None]
@@ -301,9 +378,10 @@ def _open_round_pre(cs, zs, t, m: int):
     return s_comb, route, dot_l, dot_r
 
 
-def _open_round_fold(cs, zs, t, m: int, xi, xi_inv):
+def _open_round_fold(cs, zs, t, m: int, xi, xi_inv, lane0: int = 0):
     """Fold cs / zs with the round challenge (pcdl.rs:216-224) and absorb xi
-    into t at bit lg(m); lanes >= m of cs / zs become zero."""
+    into t at bit lg(m), t's lanes starting at lane0 as in _open_round_pre;
+    lanes >= m of cs / zs become zero."""
     n = cs.shape[1]
     i = torch.arange(n, device=cs.device)
     mask = (i < m)[None]
@@ -311,7 +389,7 @@ def _open_round_fold(cs, zs, t, m: int, xi, xi_inv):
     zero = torch.zeros_like(cs)
     c_new = torch.where(mask, FR.add(cs, poly_mod.scale(cs[:, ip], xi_inv)), zero)
     z_new = torch.where(mask, FR.add(zs, poly_mod.scale(zs[:, ip], xi)), zero)
-    t_new = torch.where(((i & m) != 0)[None], poly_mod.scale(t, xi), t)
+    t_new = torch.where(((i[lane0 : lane0 + t.shape[1]] & m) != 0)[None], poly_mod.scale(t, xi), t)
     return c_new, z_new, t_new
 
 
@@ -511,18 +589,41 @@ def _rows_and_isinf(P, s):
     return cv.is_identity(msm_mod.msm_rows(P, s))
 
 
-def succinct_check_batch_device(checks, pp: pp_mod.PublicParams):
+def rows_sharded(rows, pp: pp_mod.PublicParams, mesh, axis: str | None = None, pow2: bool = True):
+    """Identity verdicts of host MSM rows [(pts, scs)] split over a mesh's
+    ranks: the rows padded with identity rows, to a power of two (pow2) and
+    then to a multiple of the mesh's size, as the JAX package pads them;
+    each rank runs the row MSM on its contiguous B / size rows and the
+    verdicts are all-gathered: (B,) bool on every rank, B >= len(rows), the
+    padding rows True."""
+    from halo_accumulation_tpu_torch.parallel import msm_sharded as sh
+
+    assert axis in (None, sh.AXIS), f"the mesh's one dimension is {sh.AXIS!r}"
+    nd, r = mesh.size(), mesh.get_local_rank(sh.AXIS)
+    B = 1 << (len(rows) - 1).bit_length() if pow2 else len(rows)
+    B = nd * -(-B // nd)
+    b = B // nd
+    mine = (rows + [([None], [0])] * (B - len(rows)))[r * b : (r + 1) * b]
+    return sh.gather_rows(_rows_and_isinf(*rows_tensors(mine, pp.device)), mesh)
+
+
+def succinct_check_batch_device(checks, pp: pp_mod.PublicParams, mesh=None, axis: str | None = None):
     """Host transcript replays + one batched row MSM, verdict left on the
-    device: (parts, ok (B,) bool) with parts[b] = (HPoly, pts, scs)."""
+    device: (parts, ok (B,) bool) with parts[b] = (HPoly, pts, scs).
+    mesh: the rows split over its ranks (rows_sharded), the (B,) verdicts,
+    padding rows included, on every rank; every rank must call it."""
     parts = [succinct_check_parts(C, d, z, v, pi, pp) for (C, d, z, v, pi) in checks]
-    P, s = rows_tensors([(p[1], p[2]) for p in parts], pp.device)
-    return parts, _rows_and_isinf(P, s)
+    rows = [(p[1], p[2]) for p in parts]
+    if mesh is not None:
+        return parts, rows_sharded(rows, pp, mesh, axis)
+    return parts, _rows_and_isinf(*rows_tensors(rows, pp.device))
 
 
-def succinct_check_batch(checks, pp: pp_mod.PublicParams):
+def succinct_check_batch(checks, pp: pp_mod.PublicParams, mesh=None, axis: str | None = None):
     """Many succinct checks in one device call: [(HPoly, U)], or ValueError
-    naming the first failing batch index."""
-    parts, R = succinct_check_batch_device(checks, pp)
+    naming the first failing batch index.  mesh: the rows split over its
+    ranks; every rank raises the same error."""
+    parts, R = succinct_check_batch_device(checks, pp, mesh, axis)
     ok = R.cpu().tolist()
     for b in range(len(parts)):
         if not ok[b]:
@@ -589,7 +690,9 @@ def check_device(C: Point, d: int, z: int, v: int, pi: EvalProof, pp: pp_mod.Pub
     mesh: a 1-D DeviceMesh (parallel/msm_sharded.make_mesh) to split the
     deferred n-point MSM over its ranks, as the JAX package's check_device
     does when its size divides n; every rank must call it, and each gets
-    the verdict.  axis: the mesh's dimension name (msm_sharded.AXIS)."""
+    the verdict.  Under a mesh whose size does not divide n, every rank
+    runs the single-device check.  axis: the mesh's dimension name
+    (msm_sharded.AXIS)."""
     if mesh is None or (d + 1) % mesh.size():
         return check_many_device([(C, d, z, v, pi)], pp)[0]
     from halo_accumulation_tpu_torch.parallel import msm_sharded as sh

@@ -10,12 +10,20 @@ The scalars are hashed on the host; the fixed-base multiplications run on
 the device as 8-bit windowed table lookups (32 tables of 256 multiples of
 2^(8w) G, built on the host) summed by complete adds, then one batched
 normalization.  The n-generator URS is a prefix of any larger one, so
-`get_pp` serves smaller sizes by slicing the largest it holds.
+`get_pp` serves smaller sizes by slicing the smallest larger one it holds,
+in memory or on disk.
+
+The disk cache is the JAX package's: `urs_<n>.npz` in the directory
+HALO_TPU_URS_CACHE (default `.urs_cache/` at the repository root), holding
+gs_x and gs_y as (18, n) uint32 canonical limbs and s_x, s_y, h_x, h_y as
+decimal strings; a file either package writes loads in the other.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
+import pathlib
 
 import numpy as np
 import torch
@@ -140,23 +148,81 @@ def generate(n: int, device=None) -> PublicParams:
 
 
 _pp_cache: dict = {}
+_REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
-def get_pp(n: int, device=None) -> PublicParams:
+def cache_dir() -> pathlib.Path:
+    """The URS disk cache's directory: HALO_TPU_URS_CACHE, read at each call."""
+    return pathlib.Path(os.environ.get("HALO_TPU_URS_CACHE", str(_REPO_ROOT / ".urs_cache")))
+
+
+def _cached_file(n: int):
+    """urs_<n>.npz, else the urs_<m>.npz with the smallest m > n, in the
+    cache directory; None when there is neither.  Names whose <m> is not
+    an integer are not cache files."""
+    d = cache_dir()
+    exact = d / f"urs_{n}.npz"
+    if exact.exists():
+        return exact
+    sizes = []
+    for q in d.glob("urs_*.npz"):
+        try:
+            m = int(q.stem.split("_")[1])
+        except ValueError:
+            continue
+        if m > n:
+            sizes.append((m, q))
+    return min(sizes)[1] if sizes else None
+
+
+def _load(path: pathlib.Path, n: int, device) -> PublicParams:
+    """The first n generators of a cache file; ValueError naming the file
+    when it does not parse or holds fewer than n."""
+    try:
+        with np.load(path) as z:
+            gx, gy = z["gs_x"], z["gs_y"]
+            s, h = (int(z["s_x"]), int(z["s_y"])), (int(z["h_x"]), int(z["h_y"]))
+    except Exception as e:
+        raise ValueError(f"URS cache file {path} does not parse: {e!r}") from e
+    if gx.ndim != 2 or gx.shape[0] != L or gx.shape[1] < n or gy.shape != gx.shape:
+        raise ValueError(f"URS cache file {path} holds gs_x {gx.shape}, gs_y {gy.shape}; needs (18, >= {n})")
+    return from_numpy(gx[:, :n], gy[:, :n], s, h, device)
+
+
+def _save(pp: PublicParams, path: pathlib.Path) -> None:
+    """Write pp in the JAX package's layout, through a temporary file and a
+    rename, so a reader never sees half a file."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    gx, gy, s, h = to_numpy(pp)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, gs_x=gx, gs_y=gy, s_x=str(s[0]), s_y=str(s[1]), h_x=str(h[0]), h_y=str(h[1]))
+    os.replace(tmp, path)
+
+
+def get_pp(n: int, device=None, use_disk_cache: bool = True) -> PublicParams:
     """The n-generator URS on `device` (the card by default; "cpu" only when
-    named), generated once per process and sliced from the largest one
-    held."""
+    named): from memory, sliced from the smallest larger URS held, else
+    from the disk cache (the JAX package's rule: urs_<n>.npz or the
+    smallest larger file, sliced), else generated, and then written to the
+    cache as urs_<n>.npz.  A cache file that exists but does not parse
+    raises."""
     _check_size(n)
     dev = runtime.device(device)
     key = (n, str(dev))
     if key in _pp_cache:
         return _pp_cache[key]
     bigger = [m for (m, d) in _pp_cache if d == str(dev) and m > n]
+    path = _cached_file(n) if use_disk_cache and not bigger else None
     if bigger:
         big = _pp_cache[(min(bigger), str(dev))]
         pp = PublicParams(n, big.gs_x[:, :n], big.gs_y[:, :n], big.s, big.h)
+    elif path is not None:
+        pp = _load(path, n, dev)
     else:
         pp = generate(n, dev)
+        if use_disk_cache:
+            _save(pp, cache_dir() / f"urs_{n}.npz")
     _pp_cache[key] = pp
     return pp
 

@@ -11,6 +11,8 @@ Byte-for-byte the layouts of `halo_accumulation_tpu/utils/serialize.py`:
 
 from __future__ import annotations
 
+import hashlib
+
 from halo_accumulation_tpu_torch import fields
 
 SW_INFINITY = 0x40
@@ -20,6 +22,11 @@ POINT_BYTES = 33
 
 def ser_scalar(v: int) -> bytes:
     return (v % fields.R).to_bytes(32, "little")
+
+
+def ser_base(v: int) -> bytes:
+    """Fq canonical 32-byte LE."""
+    return (v % fields.Q).to_bytes(32, "little")
 
 
 def ser_point(P) -> bytes:
@@ -72,3 +79,7 @@ def ser_scalar_vec(vs) -> bytes:
 def ser_poly(coeffs) -> bytes:
     """ark-poly DensePolynomial { coeffs: Vec<F> }."""
     return ser_scalar_vec(coeffs)
+
+
+def sha3_256(data: bytes) -> bytes:
+    return hashlib.sha3_256(data).digest()

@@ -11,6 +11,12 @@ from __future__ import annotations
 import hashlib
 
 from halo_accumulation_tpu_torch import fields
+from halo_accumulation_tpu_torch.utils import serialize as ser
+
+
+def from_le_bytes_mod_order(b: bytes) -> int:
+    """ark-ff PrimeField::from_le_bytes_mod_order for Fr."""
+    return int.from_bytes(b, "little") % fields.R
 
 
 def _rho(tag: int, parts) -> int:
@@ -18,7 +24,7 @@ def _rho(tag: int, parts) -> int:
     for p in parts:
         h.update(p)
     h.update(tag.to_bytes(4, "little"))
-    return int.from_bytes(h.digest(), "little") % fields.R
+    return from_le_bytes_mod_order(h.digest())
 
 
 def rho_0(*parts: bytes) -> int:
@@ -27,3 +33,8 @@ def rho_0(*parts: bytes) -> int:
 
 def rho_1(*parts: bytes) -> int:
     return _rho(1, parts)
+
+
+def rho_0_scalar_point_point(xi: int, L, R) -> int:
+    """xi_next = rho_0(xi_i, L_i, R_i), a fold round's challenge."""
+    return rho_0(ser.ser_scalar(xi), ser.ser_point(L), ser.ser_point(R))

@@ -21,6 +21,7 @@ from halo_accumulation_tpu import acc as jacc, chain as jchain, pcdl as jpcdl, p
 from halo_accumulation_tpu_torch import acc as acc_mod, chain, fields as F, pcdl, pp as pp_mod
 from halo_accumulation_tpu_torch.ops import curve as cv, poly
 from halo_accumulation_tpu_torch.ops.field import FR, L
+from tests.test_torch_host_extra import own_urs_cache  # noqa: F401  (a URS cache of the module's own)
 
 torch.set_num_threads(1)  # tier-1 runs several workers on few cores
 

@@ -315,6 +315,59 @@ def test_msm_sharded_one_rank_on_card(cuda, rng):
         dist.destroy_process_group()
 
 
+def test_mesh_open_one_rank_on_card(cuda):
+    """open_(mesh=) on a one-rank NCCL mesh writes the single-device open's
+    bytes at n = 512 with hiding (the single device takes the device
+    transcript there, the mesh the host transcript), and succinct_check
+    accepts the proof."""
+    import torch.distributed as dist
+
+    from halo_accumulation_tpu_torch.parallel import msm_sharded as sh
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    n = 512
+    pp = pp_mod.get_pp(n, cuda)
+    rng = np.random.default_rng(9)
+    coeffs = [int.from_bytes(rng.bytes(40), "little") % F.R for _ in range(n)]
+    z, w = (int.from_bytes(rng.bytes(40), "little") % F.R for _ in range(2))
+    v = sum(c * pow(z, i, F.R) for i, c in enumerate(coeffs)) % F.R
+    cd = FR.from_ints(coeffs, cuda)
+    C = pcdl.commit(cd, n - 1, w, pp)
+    mesh = sh.make_mesh()
+    try:
+        assert dist.get_backend() == "nccl" and mesh.size() == 1
+        got = pcdl.open_(np.random.default_rng(3), cd, C, n - 1, z, w, pp, mesh=mesh, v=v)
+    finally:
+        dist.destroy_process_group()
+    want = pcdl.open_(np.random.default_rng(3), cd, C, n - 1, z, w, pp, v=v)
+    assert got.serialize() == want.serialize()
+    pcdl.succinct_check(C, n - 1, z, v, got, pp)
+
+
+def test_pmul_shared_on_card(cuda, rng):
+    """pmul_shared on 1,024 lanes launches padd and pdbl 129 times each (the
+    table, then a window's two doublings and one add, 128 windows) and
+    equals fields.p_mul on a sample of lanes."""
+    pp = pp_mod.get_pp(1024, cuda)
+    k = int.from_bytes(rng.bytes(40), "little") % F.R
+    ck.reset_launches()
+    R = cv.pmul_shared(FR.from_ints([k], cuda)[:, 0], pp.gs_points(1024))
+    assert ck.launch_counts()["padd"] == ck.launch_counts()["pdbl"] == 129
+    idx = [0, 1, 500, 1023]
+    gs = pp.gs_host(1024)
+    assert cv.to_host(cv.PointVec(*(a[:, idx] for a in R))) == [F.p_mul(k, gs[i]) for i in idx]
+
+
+def test_dryrun_one_card(cuda, capfd):
+    """parallel/dryrun.dryrun_multichip(1): one NCCL rank on the card runs
+    the five phases at n = 16, proving its instances and chain."""
+    from halo_accumulation_tpu_torch.parallel import dryrun
+
+    dryrun.dryrun_multichip(1)
+    out = capfd.readouterr().out
+    assert "on NCCL" in out and "dryrun_multichip OK: 1 ranks, n = 16" in out
+
+
 def test_default_device_is_cuda(cuda):
     assert pp_mod.get_pp(64).device == pp_mod.get_pp(64, cuda).device == torch.device("cuda", 0)
 

@@ -21,6 +21,7 @@ from halo_accumulation_tpu.utils import serialize as jser
 from halo_accumulation_tpu_torch import acc, chain, fields as F, pcdl, pp as pp_mod
 from halo_accumulation_tpu_torch.ops.field import FR, L
 from halo_accumulation_tpu_torch.utils import serialize as ser
+from tests.test_torch_host_extra import own_urs_cache  # noqa: F401  (a URS cache of the module's own)
 
 torch.set_num_threads(1)  # tier-1 runs several workers on few cores
 

@@ -26,6 +26,7 @@ import torch
 from halo_accumulation_tpu import api as japi
 from halo_accumulation_tpu_torch import acc, api, chain, fields as F, pcdl, pp as pp_mod, runtime
 from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
+from tests.test_torch_host_extra import own_urs_cache  # noqa: F401  (a URS cache of the module's own)
 
 torch.set_num_threads(1)  # tier-1 runs several workers on few cores
 

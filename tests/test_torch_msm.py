@@ -21,6 +21,7 @@ from halo_accumulation_tpu.ops import curve as jcv, msm as jmsm
 from halo_accumulation_tpu_torch import pp as pp_mod, runtime
 from halo_accumulation_tpu_torch.ops import curve as cv, msm, poly
 from halo_accumulation_tpu_torch.ops.field import FR, L
+from tests.test_torch_host_extra import own_urs_cache  # noqa: F401  (a URS cache of the module's own)
 
 torch.set_num_threads(1)  # tier-1 runs several workers on few cores
 

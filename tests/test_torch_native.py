@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from halo_accumulation_tpu_torch import chain, fields as F, hostops, native, pp as pp_mod
+from tests.test_torch_host_extra import own_urs_cache  # noqa: F401  (a URS cache of the module's own)
 
 torch.set_num_threads(1)  # tier-1 runs several workers on few cores
 

@@ -10,6 +10,7 @@ import torch
 
 from halo_accumulation_tpu_torch import pcdl
 from halo_accumulation_tpu_torch.ops import msm
+from tests.test_torch_host_extra import own_urs_cache  # noqa: F401  (a URS cache of the module's own)
 from tests.test_torch_open_device import D, _open_plain, _spy, claim, host_plain, pp  # noqa: F401
 
 torch.set_num_threads(1)  # tier-1 runs several workers on few cores

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from halo_accumulation_tpu_torch import chain, pcdl
+from tests.test_torch_host_extra import own_urs_cache  # noqa: F401  (a URS cache of the module's own)
 from tests.test_torch_open_device import D, _taking, pp  # noqa: F401
 
 torch.set_num_threads(1)  # tier-1 runs several workers on few cores

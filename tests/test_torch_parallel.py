@@ -25,6 +25,7 @@ from halo_accumulation_tpu_torch import chain, fields as F, pcdl, pp as pp_mod
 from halo_accumulation_tpu_torch.ops import curve as cv, msm
 from halo_accumulation_tpu_torch.ops.field import FR
 from halo_accumulation_tpu_torch.parallel import msm_sharded as sh
+from tests.test_torch_host_extra import own_urs_cache  # noqa: F401  (a URS cache of the module's own)
 
 torch.set_num_threads(1)  # tier-1 runs several workers on few cores
 

@@ -4,6 +4,7 @@ there and must still give the verdicts check_device gives."""
 
 import torch
 
+from tests.test_torch_host_extra import own_urs_cache  # noqa: F401  (a URS cache of the module's own)
 from tests.test_torch_parallel import claims, run_world  # noqa: F401
 
 torch.set_num_threads(1)  # tier-1 runs several workers on few cores

@@ -12,6 +12,7 @@ import torch
 from halo_accumulation_tpu import fields as F
 from halo_accumulation_tpu_torch import pcdl, pp as pp_mod
 from halo_accumulation_tpu_torch.ops import msm
+from tests.test_torch_host_extra import own_urs_cache  # noqa: F401  (a URS cache of the module's own)
 
 torch.set_num_threads(1)  # tier-1 runs several workers on few cores
 
