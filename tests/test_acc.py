@@ -9,6 +9,8 @@ from halo_accumulation_tpu import fields as F
 from halo_accumulation_tpu import pcdl
 from halo_accumulation_tpu import pp as pp_mod
 
+pytestmark = pytest.mark.slow  # 424 s cold in tier-1, its two tests; tests the JAX reference; run with -m slow
+
 N_URS = 16
 
 

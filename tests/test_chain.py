@@ -10,6 +10,8 @@ from halo_accumulation_tpu import acc as acc_mod
 from halo_accumulation_tpu import api, chain, fields as F
 from halo_accumulation_tpu import pp as pp_mod
 
+pytestmark = pytest.mark.slow  # 2,119 s cold in tier-1, its six tests; tests the JAX reference; run with -m slow
+
 
 @pytest.fixture(scope="module")
 def pp():

@@ -33,7 +33,8 @@ _HEAVY = os.environ.get("HALO_TEST_HEAVY", "0") != "0"
 
 @pytest.mark.parametrize(
     "n_dev,N",
-    [(8, 64), (3, 96), (8, 256)]
+    [(8, 64), (3, 96),
+     pytest.param(8, 256, marks=pytest.mark.slow)]  # 129 s cold in tier-1; tests the JAX reference; run with -m slow
     # N=1024 covers window grouping/padding above the small-N regime
     # (ADVICE r4 low); ~10 min of XLA:CPU compile, so opt-in.
     + ([(8, 1024)] if _HEAVY else []),
@@ -54,6 +55,7 @@ def test_msm_sharded_matches(rng, n_dev, N):
     assert bool(np.asarray(cached_jit(cv.peq)(R, R1)))
 
 
+@pytest.mark.slow  # 315 s cold in tier-1; tests the JAX reference; run with -m slow
 def test_open_fold_sharded_matches(rng):
     """Degree-axis ("sequence parallel") sharding of the IPA open fold:
     gs/cs/zs sharded over the mesh must produce the bit-identical proof."""
@@ -77,6 +79,7 @@ def test_open_fold_sharded_matches(rng):
     pcdl.check(C, d, z, v, pi_sharded, pp)
 
 
+@pytest.mark.slow  # 670 s cold in tier-1; tests the JAX reference; run with -m slow
 def test_verify_chain_sharded(rng):
     """The headline fast path with a mesh: batched succinct checks + U_0
     rows sharded over the instance axis, decider's n-MSM sharded over
@@ -98,6 +101,7 @@ def test_verify_chain_sharded(rng):
         acc_mod.verify_chain(d, qss, accs[:-1] + [bad], pp, mesh=mesh, axis=pms.AXIS)
 
 
+@pytest.mark.slow  # 201 s cold in tier-1; tests the JAX reference; run with -m slow
 def test_succinct_check_batch_sharded(rng):
     """Instance-batch (dp) sharding of the batched succinct check."""
     from halo_accumulation_tpu import chain, pcdl

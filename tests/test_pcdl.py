@@ -31,6 +31,7 @@ def eval_host(coeffs, z):
     return v
 
 
+@pytest.mark.slow  # 484 s cold in tier-1, its four cases; tests the JAX reference; run with -m slow
 @pytest.mark.parametrize("hiding", [False, True], ids=["plain", "hiding"])
 @pytest.mark.parametrize("n", [8, 32])
 def test_check_e2e(rng, pp, hiding, n):
@@ -104,6 +105,7 @@ def test_commit_homomorphism(rng, pp):
     assert lhs == rhs
 
 
+@pytest.mark.slow  # 1,230 s cold in tier-1; tests the JAX reference; run with -m slow
 def test_open_device_matches_host(rng, monkeypatch):
     """The device-transcript fused open (_open_fold_device: on-device SHA3
     challenges, H'-as-basis-columns, fused fori ladder) must produce
@@ -132,6 +134,7 @@ def test_open_device_matches_host(rng, monkeypatch):
     pcdl.check(Ch, d, z, v, pi_h, pp5)
 
 
+@pytest.mark.slow  # 431 s cold in tier-1; tests the JAX reference; run with -m slow
 def test_open_device_collapse_matches_host(rng, monkeypatch):
     """The basis-collapse segments (fold-by-16 every 4 rounds,
     msm.fold_basis) must preserve bit-identical proofs: force the collapse

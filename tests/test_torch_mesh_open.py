@@ -26,11 +26,13 @@ import torch.multiprocessing as mp
 from halo_accumulation_tpu_torch import chain, fields as F, pcdl, pp as pp_mod
 from halo_accumulation_tpu_torch.ops.field import FR
 from halo_accumulation_tpu_torch.parallel import msm_sharded as sh
+from tests._spawn import join_all
 from tests.test_torch_host_extra import own_urs_cache  # noqa: F401  (a URS cache of the module's own)
 
 torch.set_num_threads(1)  # tier-1 runs several workers on few cores
 
 N = 16
+DEADLINE_S = 200  # for the ranks: about three times this file's cold time in tier-1 (62 s; _2.py 40 s)
 HIDING = {"plain": None, "hiding": 12345}
 JAX_OPENS = pathlib.Path(__file__).resolve().parent / "data" / "open_16.json"
 
@@ -110,10 +112,8 @@ def run_world(world: int, tmp):
     """A world's proofs by rank, and the single-device {case: (C, proof
     bytes)}, each equal to the JAX package's and accepted by
     succinct_check."""
-    ctxs = [spawn(w, tmp) for w in (0, world)]
-    for ctx in ctxs:
-        while not ctx.join():
-            pass
+    with join_all([spawn(w, tmp) for w in (0, world)], DEADLINE_S):
+        pass
     single = {k: (tuple(r["C"][k]) if r["C"][k] else None, b) for r in results(0, tmp) for k, b in r["proofs"].items()}
     assert {k: b for k, (_, b) in single.items()} == jax_proofs(), "the single-device open differs from the JAX package's"
     _, z, v = claim()

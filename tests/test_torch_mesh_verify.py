@@ -27,10 +27,12 @@ import torch.multiprocessing as mp
 
 from halo_accumulation_tpu_torch import acc, chain, fields as F, pcdl, pp as pp_mod
 from halo_accumulation_tpu_torch.parallel import msm_sharded as sh
+from tests._spawn import join_all
 from tests.test_torch_host_extra import own_urs_cache  # noqa: F401  (a URS cache of the module's own)
 
 torch.set_num_threads(1)  # tier-1 runs several workers on few cores
 
+DEADLINE_S = 150  # for the ranks: about three times this file's cold time in tier-1 (36 s; _3.py 46 s)
 CHAIN = pathlib.Path(__file__).resolve().parent / "data" / "chain_16_2.bin"
 BAD_ROW = 5
 
@@ -99,12 +101,10 @@ def run_world(world: int, tmp_path) -> None:
     and texts (WANT).  Every rank must give the same, and its verify_chain
     deciders must take msm_sharded exactly when the mesh's size divides
     n = 16."""
-    ctxs = [mp.start_processes(_rank, args=(world, str(tmp_path / f"store{g}"), str(tmp_path / f"out{g}"), names),
-                               nprocs=world, join=False, start_method="spawn") for g, names in enumerate(GROUPS)]
-    single = cases()
-    for ctx in ctxs:
-        while not ctx.join():
-            pass
+    with join_all([mp.start_processes(_rank, args=(world, str(tmp_path / f"store{g}"), str(tmp_path / f"out{g}"), names),
+                                      nprocs=world, join=False, start_method="spawn") for g, names in enumerate(GROUPS)],
+                  DEADLINE_S):
+        single = cases()
     assert single == WANT
     for g, names in enumerate(GROUPS):
         chains = sum(name.startswith("chain") for name in names)

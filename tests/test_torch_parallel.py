@@ -25,11 +25,13 @@ from halo_accumulation_tpu_torch import chain, fields as F, pcdl, pp as pp_mod
 from halo_accumulation_tpu_torch.ops import curve as cv, msm
 from halo_accumulation_tpu_torch.ops.field import FR
 from halo_accumulation_tpu_torch.parallel import msm_sharded as sh
+from tests._spawn import join_all
 from tests.test_torch_host_extra import own_urs_cache  # noqa: F401  (a URS cache of the module's own)
 
 torch.set_num_threads(1)  # tier-1 runs several workers on few cores
 
 D = 1
+DEADLINE_S = 240  # for the ranks: about three times this file's cold time in tier-1 (75 s; _3.py 38 s)
 
 
 def _rank(rank: int, world: int, store: str, out: str, pts, scs, claims) -> None:
@@ -85,9 +87,8 @@ def run_world(world: int, N: int, claims, tmp_path) -> None:
     out = str(tmp_path / "out")
     ctx = mp.start_processes(_rank, args=(world, str(tmp_path / "store"), out, pts, scs, qs),
                              nprocs=world, join=False, start_method="spawn")
-    single = cv.to_host(msm.msm(cv.from_affine_ints(pts), FR.from_ints(scs)))[0]
-    while not ctx.join():
-        pass
+    with join_all([ctx], DEADLINE_S):
+        single = cv.to_host(msm.msm(cv.from_affine_ints(pts), FR.from_ints(scs)))[0]
     want = jF.p_msm(scs, pts)
     assert single == want
     for r in range(world):
