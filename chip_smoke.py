@@ -36,7 +36,11 @@ Phases, each printing one JSON line:
      p - 1, 2^254, lazy limbs at or above p), timed at every width, the
      path's two lanes (a round's L and R) its row; rho_round (a round's
      challenge) on 64 random (xi, L, R) triples and the boundary cases (L
-     or R the identity, y = (q - 1) / 2 and (q + 1) / 2).
+     or R the identity, y = (q - 1) / 2 and (q + 1) / 2); h_digits (the
+     h expansion and its window digits) at decide_many's chunk, K = 10
+     claims at n = 16384 and c = 8, equal digit for digit to its twin (the
+     torch glue it replaces, run on the card), beside its bound, the digit
+     writes.
      Each is held against its plain PyTorch twin (its limbs canonical and
      equal to FQ.canon of the twin's, see _same) and, on a sample, against
      the pure-Python int oracle; median times of kernel and twin by CUDA
@@ -154,6 +158,7 @@ PDBL_PATH_LANES = 10  # decide_many's Horner combine: its ten stacked deciders, 
 FINV_CHECKED = (1, 2, 10, 1024, 65536)  # finv widths held to the twin, Fq and Fr (1,024: fold_basis's to_affine)
 FINV_PATH_LANES = 2  # to_affine of a round's L and R (a round's challenge inverts 1 lane, fold_basis 1,024)
 RHO_RANDOM = 64  # random (xi, L, R) triples rho_round is held to its twin on
+H_DIGITS_K = 10  # h_digits' claims: decide_many's chunk (acc.KC) at n = N
 QUEUE_CYCLES = 10_000_000  # about 5 ms of SM clock: covers the host's enqueue of ten launches
 SPLITS = (1, 2, 4, 8, 16)  # threads per column of both bucket kernels, all held to the twin and timed
 ACCUM_TOP_SHAPE = (48, 1024)  # pad, columns of the rowperm MSM's folded top window at n = 16384
@@ -307,8 +312,15 @@ MUST_LAUNCH = {"sortrows": {"padd", "pdbl", "bucket_masked"},
                "rowperm": {"padd", "pdbl", "bucket_accum"},
                "staged": {"padd", "pdbl"}}
 VERIFY_ALSO = {"fmul"}
+SORTROWS_VERIFY_ALSO = {"h_digits"}  # the sort-payload deciders' digit rows
 OPEN_DEVICE_ALSO = {"finv", "rho_round"}  # the device-transcript open's challenge and inversions
-WIDTHS_KEPT = ("padd", "pdbl", "bucket_masked", "bucket_accum", "finv")  # kernels whose launches by width each path reports
+WIDTHS_KEPT = ("padd", "pdbl", "bucket_masked", "bucket_accum", "finv", "h_digits")  # kernels whose launches by width each path reports
+
+
+def verify_must(impl: str) -> set:
+    """The kernels a verifier path (verify_chain, decide_many) must launch
+    under MSM setting impl."""
+    return MUST_LAUNCH[impl] | VERIFY_ALSO | (SORTROWS_VERIFY_ALSO if impl == "sortrows" else set())
 
 
 def emit(obj) -> None:
@@ -917,6 +929,7 @@ def phase_kernels(dev, pp, sm_mhz):
                 raise AssertionError(f"bucket_accum ({lanes} lanes) disagrees with the int oracle")
     _finv_rows(dev, rng, sm_mhz, record)
     _rho_rows(dev, rng, sm_mhz, record)
+    res["h_digits"] = _h_digits_row(dev, rng, sm_mhz)
     emit({"phase": "kernels", "lanes": LANES, **res})
     # the kernels line reports the 64-lane shape (the prover's rounds, most
     # of the launches) and carries both
@@ -1029,6 +1042,37 @@ def _rho_rows(dev, rng, sm_mhz, record) -> None:
            bound(RHO_BYTES, KECCAK_OPS32, KECCAK_IMPL_OPS32, sm_mhz), field=FR, cases=len(cases),
            note="one warp, a lane a thread: the launch and the rounds' dependent shuffles, not the "
                 "rate, are what the card cannot beat")
+
+
+def _h_digits_row(dev, rng, sm_mhz) -> dict:
+    """h_digits at decide_many's chunk (H_DIGITS_K claims, n = N, c =
+    window_size(N)), the challenges random with 0, 1 and r - 1 among the
+    factors: its digits equal the twin's (the torch glue it replaces, on
+    the card), digit for digit.  Median ms of ten launches queued and of
+    the twin; the bound is the digit writes, 8 W K n bytes, against the
+    least multiplies, K (n - 1) products; impl_muls32 counts the kernel's
+    own (a tile's 2^t - 1 table products, its high product's factors, one
+    a coefficient)."""
+    from halo_accumulation_tpu_torch import fields as F
+    from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
+    from halo_accumulation_tpu_torch.ops import msm as msm_mod
+    from halo_accumulation_tpu_torch.ops.field import FR, L
+
+    K, n = H_DIGITS_K, N
+    lg, c = n.bit_length() - 1, msm_mod.window_size(n)
+    vals = [int.from_bytes(rng.bytes(40), "little") % F.R for _ in range(K * (lg + 1))]
+    vals[1], vals[lg + 3], vals[2 * lg + 5] = 0, 1, F.R - 1
+    xis = FR.from_ints(vals, dev).reshape(L, K, lg + 1)
+    got = ck.h_digits(xis, c)
+    if not torch.equal(got, ck.h_digits_plain(xis, c)):
+        raise AssertionError("h_digits != its twin's digits")
+    W = msm_mod.num_windows(c)
+    t = min(lg, 8)  # the tile's bits, kTileBits in csrc/h_digits.cu
+    impl = K * sum((1 << (t + 1)) - 1 + bin(tile).count("1") for tile in range(n >> t))
+    return {"max_abs_err": 0, "ms": cuda_time(lambda: [ck.h_digits(xis, c) for _ in range(10)], 7, queued=True) / 10,
+            "plain_ms": cuda_time(lambda: ck.h_digits_plain(xis, c), 5), "library_ms": None,
+            **bound(8 * W * K * n, MIN_MULS_FMUL * K * (n - 1), IMPL_MULS_FMUL * impl, sm_mhz),
+            "shape": {"K": K, "n": n, "c": c, "windows": W}}
 
 
 def _raw_ints(t):
@@ -1614,7 +1658,7 @@ def phase_chains(dev, smi, launches, widths) -> None:
             pcdl.check_many_device = lambda checks, p: chunks.append(len(checks)) or real(checks, p)
             try:
                 with env("HALO_TPU_MSM_IMPL", impl):
-                    must = MUST_LAUNCH[impl] | VERIFY_ALSO
+                    must = verify_must(impl)
                     tag = f"chains_{n}_{K}_{impl}"
                     res = {"verify_chain_s": [counted(f"{tag}_verify_chain", must,
                                                       lambda: chain.verify_chain_fast(d, qss, accs, pp), launches, widths),
@@ -1656,7 +1700,7 @@ def phase_chain(pp, smi, launches, widths):
         with env("HALO_TPU_MSM_IMPL", impl):
             for path, fn in paths.items():
                 tag = path if impl == "sortrows" else f"{path}_{impl}"
-                first[path] = counted(tag, MUST_LAUNCH[impl] | VERIFY_ALSO, fn, launches, widths)
+                first[path] = counted(tag, verify_must(impl), fn, launches, widths)
             for path, fn in paths.items():
                 warm[impl][path] = float(np.median([wall(fn) for _ in range(3)]))
             if impl == "sortrows":
@@ -1890,7 +1934,7 @@ def main() -> int:
                         "launches": total, "launches_by_path": {p: n[name] for p, n in launches.items()},
                         **{key: res[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                            "bound_by", "library_ms")},
-                        **{key: res[name][key] for key in ("lanes", "k", "split", "threads", "by_threads", "at_path_shape",
+                        **{key: res[name][key] for key in ("lanes", "k", "split", "threads", "by_threads", "at_path_shape", "shape",
                                                            "by_fill", "by_width", "by_lanes", "by_field", "cases")
                            if key in res[name]}})
     for k in WIDTHS_KEPT:

@@ -2,7 +2,7 @@
 
 Five CUDA kernels (sources in `halo_accumulation_tpu_torch/csrc/`) replace
 every Pallas kernel of `halo_accumulation_tpu/ops/pallas_kernels.py`, and
-two more replace XLA glue of the JAX package that runs hot on the card
+three more replace XLA glue of the JAX package that runs hot on the card
 (no Pallas site):
 
   fmul           <- _fmul_kernel           Fq multiply (the others' inner loop)
@@ -17,12 +17,17 @@ two more replace XLA glue of the JAX package that runs hot on the card
                     Field.inv's root       (one lane a thread)
   rho_round      <- pcdl._rho_round_device a round's challenge: the SHA3-256 of
                     over ops/keccak.py     xi || L || R reduced mod r (one warp)
+  h_digits       <- vmap(tensor_h_coeffs)  the deciders' h(X) coefficients cut into
+                    and the digits of      their MSM window digits (a block a tile
+                    _deciders_fused        of coefficients of one claim)
 
 Each has a plain PyTorch twin here that runs the same field operations in
 the same order (the twins run ops/limbs.py's list form stacked over a batch
-axis, in the JAX package's lazy 15-bit limbs).  The kernels compute on
-8 x 32-bit words (csrc/field.cuh) and store canonical limbs, so a kernel's
-output equals FQ.canon of its twin's, limb for limb.  A wrapper takes the
+axis, in the JAX package's lazy 15-bit limbs).  The kernels compute on 8 x
+32-bit words (csrc/field.cuh) and store canonical limbs, so a kernel's
+output equals FQ.canon of its twin's, limb for limb; h_digits' twin is the
+glue it replaces (poly.tensor_h_coeffs, then msm._digits), whose digits
+it equals exactly.  A wrapper takes the
 twin for tensors on the CPU and launches the kernel for CUDA tensors; any
 other device raises.  Each launch adds one to its kernel's `launches`
 count and to its count at that width (`widths`), and only a launch does:
@@ -64,6 +69,8 @@ BUCKET_FILL_THREADS, BUCKET_MAX_SPLIT, BUCKET_MIN_CHUNK = 1 << 14, 16, 8
 # slots, 7,936 columns) the fill target keeps T = 4, the best of the sweep
 # (PERF.md).
 ACCUM_MIN_CHUNK = 2
+# h_digits' window sizes: every c that msm.window_size picks.
+H_DIGITS_WINDOWS = (4, 6, 8, 10, 12)
 # fmul's threads per block (one lane each); chip_smoke.py times 64, 128 and
 # 256 at 65,536 lanes: within 1 % of each other, 64 the fastest on average
 # (PERF.md).
@@ -109,6 +116,9 @@ KERNELS = {
                [_VP, _I64, _VP, _VP, _I64, _VP, _VP, _VP, _I64, _VP, _VP, _VP],
                "port kernel, no Pallas site: _rho_round_device and _ser_point_words (:607) over "
                "ops/keccak.py, XLA glue"),
+        Kernel("h_digits", "halo_accumulation_tpu/acc.py:244", [_VP, _VP, _I64, _I32, _I32, _VP],
+               "port kernel, no Pallas site: vmap(tensor_h_coeffs) in _deciders_fused and the window "
+               "digits of its sort-payload MSM, XLA glue"),
     )
 }
 
@@ -265,6 +275,15 @@ def finv_plain(a, field):
 
 
 rho_round_plain = keccak.rho_round
+
+
+def h_digits_plain(xis, c: int):
+    """The glue h_digits replaces: msm._digits of poly.tensor_h_coeffs(xis),
+    its (W, K, n) rows stacked window-major to (W K, n)."""
+    from halo_accumulation_tpu_torch.ops import msm, poly  # msm imports this module
+
+    d = msm._digits(poly.tensor_h_coeffs(xis), c)
+    return d.reshape(d.shape[0] * d.shape[1], d.shape[2])
 
 
 def unpack_affine_planes(packed):
@@ -563,4 +582,28 @@ def rho_round(xi, Lax, Lay, Linf, Rax, Ray, Rinf):
     out = torch.empty(L, dtype=I64, device=xi.device)
     _launch("rho_round", 1, xi.data_ptr(), xi.stride(0), Lax.data_ptr(), Lay.data_ptr(), Lax.stride(0),
             Linf.data_ptr(), Rax.data_ptr(), Ray.data_ptr(), Rax.stride(0), Rinf.data_ptr(), out.data_ptr())
+    return out
+
+
+def h_digits(xis, c: int):
+    """The MSM window digits of the K h(X) coefficient vectors for the
+    challenges xis (18, K, lg + 1) (xis[..., 0] is not a factor): (W K, 2^lg)
+    int64, row w K + k holding window w (msb first, W = msm.num_windows(c))
+    of claim k's canonical coefficients, the rows msm.msm_many_flagged cuts.
+    c: one of H_DIGITS_WINDOWS.  One launch of width K 2^lg."""
+    if c not in H_DIGITS_WINDOWS:
+        raise ValueError(f"h_digits cuts windows of {H_DIGITS_WINDOWS} bits, got {c}")
+    if xis.dim() != 3 or xis.shape[0] != L:
+        raise ValueError(f"h_digits takes (18, K, lg + 1) challenges, got {tuple(xis.shape)}")
+    if _on_cpu(xis):
+        return h_digits_plain(xis, c)
+    if xis.dtype != I64:
+        raise TypeError(f"h_digits takes int64 limbs, got {xis.dtype}")
+    from halo_accumulation_tpu_torch.ops import msm
+
+    K, lg = xis.shape[1], xis.shape[2] - 1
+    xis = xis.contiguous()
+    out = torch.empty((msm.num_windows(c) * K, 1 << lg), dtype=I64, device=xis.device)
+    if K:
+        _launch("h_digits", K << lg, xis.data_ptr(), out.data_ptr(), K, lg, c)
     return out

@@ -36,9 +36,10 @@ chosen by HALO_TPU_MSM_IMPL as in the JAX package (`_impl`):
   * `fold_basis`: the device-transcript open's collapse of a basis by 16,
     sixteen scalars shared by every column (Strauss).
   * `fixed_base*`: the MSMs over the URS (commitments, the prover's rounds,
-    the deciders' deferred MSM).  They pick the pipeline and the URS table
-    it reads (`_sortrows` is the one reader of the setting), so pcdl.py
-    never branches on it.
+    the deciders' deferred MSMs, whose sort-payload digits the h_digits
+    kernel cuts straight from the challenges: `fixed_base_h_flagged`).
+    They pick the pipeline and the URS table it reads (`_sortrows` is the
+    one reader of the setting), so pcdl.py never branches on it.
 
 There is no jit here, so shapes need no padding to size classes: every call
 runs eagerly at its exact width.
@@ -53,7 +54,7 @@ import torch
 
 from halo_accumulation_tpu_torch import fields as _fields
 from halo_accumulation_tpu_torch.ops import cuda_kernels as ck
-from halo_accumulation_tpu_torch.ops import curve as cv
+from halo_accumulation_tpu_torch.ops import curve as cv, poly
 from halo_accumulation_tpu_torch.ops.field import FQ, FR, I64, L
 
 NBITS = 255
@@ -301,7 +302,16 @@ def _sortrows_msm(planes, scalars, c: int, pads: list[int], beffs: list[int], ro
     (18, N) pair-packed affine or (54, N) projective; N a multiple of 8.
     route: optional (N,) int64 in [0, nroute) naming each point's output
     (the supports must be disjoint: a point feeds one output)."""
-    digits = _digits(scalars, c)
+    V, ok = _sorted_groups(planes, _digits(scalars, c), pads, beffs, route, nroute)
+    acc = _horner_routes(V, c)
+    return [cv.PointVec(acc.x[:, r], acc.y[:, r], acc.z[:, r]) for r in range(nroute)], ok
+
+
+def _sorted_groups(planes, digits, pads: list[int], beffs: list[int], route=None, nroute: int = 1):
+    """Each digit row's weighted bucket sums, row w under pads[w] and
+    beffs[w], a run of rows one sorted group (split to the budget):
+    (PointVec (18, rows, nroute), ok flag).  digits: (rows, N); route as
+    in _sortrows_msm."""
     Vs, oks = [], []
     for w0, w1, beff, pad in _expand_groups_sorted(pads, beffs, nroute):
         dg = digits[w0:w1]
@@ -310,9 +320,7 @@ def _sortrows_msm(planes, scalars, c: int, pads: list[int], beffs: list[int], ro
         V, okv = _sorted_group(planes, dg, pad, beff, nroute)
         Vs.append(V)
         oks.append(okv)
-    acc = _horner_routes(_cat_groups(Vs), c)
-    outs = [cv.PointVec(acc.x[:, r], acc.y[:, r], acc.z[:, r]) for r in range(nroute)]
-    return outs, torch.stack(oks).all()
+    return _cat_groups(Vs), torch.stack(oks).all()
 
 
 _FOLD_CHUNK = 4096  # fold_basis columns per chunk: bounds its 16-multiple table
@@ -360,21 +368,21 @@ def fold_basis(planes, t16):
 
 def msm_many_flagged(planes, scalars_many, c: int, pads: list[int], beffs: list[int]):
     """K independent MSMs over one basis: scalars_many (18, K, N) ->
-    (PointVec (18, K), ok flag).  The digit rows stack window-major
-    (row w * K + k), so each window class of all K MSMs is one sorted group,
-    and one Horner combine runs batched over K."""
+    (PointVec (18, K), ok flag), by _many_digits_flagged of their digits."""
     K = scalars_many.shape[1]
     digits = _digits(scalars_many, c)  # (W, K, N)
-    W = digits.shape[0]
-    digits = digits.reshape(W * K, digits.shape[2])
+    return _many_digits_flagged(planes, digits.reshape(-1, digits.shape[2]), K, c, pads, beffs)
+
+
+def _many_digits_flagged(planes, digits, K: int, c: int, pads: list[int], beffs: list[int]):
+    """K independent MSMs over one basis from their window digits (W K, N),
+    stacked window-major (row w * K + k): each window class of all K MSMs
+    is one sorted group, and one Horner combine runs batched over K ->
+    (PointVec (18, K), ok flag)."""
+    W = digits.shape[0] // K
     rep = lambda xs: [x for x in xs for _ in range(K)]  # noqa: E731
-    Vs, oks = [], []
-    for w0, w1, beff, pad in _expand_groups_sorted(rep(pads), rep(beffs)):
-        V, okv = _sorted_group(planes, digits[w0:w1], pad, beff)
-        Vs.append(V)
-        oks.append(okv)
-    V = cv.PointVec(*(x.reshape(L, W, K) for x in _cat_groups(Vs)))
-    return _horner_routes(V, c), torch.stack(oks).all()
+    V, ok = _sorted_groups(planes, digits, rep(pads), rep(beffs))
+    return _horner_routes(cv.PointVec(*(x.reshape(L, W, K) for x in V)), c), ok
 
 
 def _pad_points(points: cv.PointVec, scalars, m: int):
@@ -882,6 +890,21 @@ def fixed_base_many_flagged(urs, scalars_many):
     outs = [fixed_base_flagged(urs, scalars_many[:, k]) for k in range(K)]
     comm = cv.PointVec(*(torch.stack([pt[i] for pt, _ in outs], dim=1) for i in range(3)))
     return comm, torch.stack([ok for _, ok in outs]).all()
+
+
+def fixed_base_h_flagged(urs, xis):
+    """The deciders' deferred MSMs: the K commitments of h(X) over the first
+    n = 2^lg generators for the challenges xis (18, K, lg + 1), each h's
+    coefficients its tensor expansion (poly.tensor_h_coeffs) ->
+    (PointVec (18, K), ok flag).  Under the sort-payload pipeline the
+    h_digits kernel writes the window digits straight from xis, with no
+    coefficient table in between; otherwise fixed_base_many_flagged of the
+    expanded coefficients."""
+    K, n = xis.shape[1], 1 << (xis.shape[2] - 1)
+    if _sortrows(n):
+        c = window_size(n)
+        return _many_digits_flagged(urs.gs_planes(n), ck.h_digits(xis, c), K, c, pinned_pads(n, c), _beffs(c))
+    return fixed_base_many_flagged(urs, poly.tensor_h_coeffs(xis))
 
 
 def msm_ladder(points: cv.PointVec, scalars) -> cv.PointVec:

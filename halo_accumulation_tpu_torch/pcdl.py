@@ -639,11 +639,11 @@ def succinct_check(C: Point, d: int, z: int, v: int, pi: EvalProof, pp: pp_mod.P
 
 def _deferred(xis, U: cv.PointVec, pp: pp_mod.PublicParams):
     """U_k == Commit(h_k) for the challenges xis (18, K, lg n + 1) and the
-    points U (18, K), AND the pinned-pad flag: (K,) bool.  The K h
-    expansions run batched; so do the K n-point MSMs under the sort-payload
-    pipeline, while the row-permutation one commits each claim on its own
-    (`msm.fixed_base_many_flagged`)."""
-    comm, flag = msm_mod.fixed_base_many_flagged(pp, poly_mod.tensor_h_coeffs(xis))
+    points U (18, K), AND the pinned-pad flag: (K,) bool.  The K n-point
+    MSMs run batched under the sort-payload pipeline, their digits cut
+    straight from xis by the h_digits kernel; the row-permutation one
+    commits each expanded h on its own (`msm.fixed_base_h_flagged`)."""
+    comm, flag = msm_mod.fixed_base_h_flagged(pp, xis)
     return cv.peq(comm, U) & flag
 
 
